@@ -22,6 +22,28 @@ Phases, each of which raises (and the script exits nonzero) on failure:
    the dense branch (fp32 summation order, compounded over 200 recurrent
    steps). Then it times the kernel, its plain version and one PyTorch
    matmul on the dense matrix for the 18 CSB MVMs of one SR1 frame.
+5. B2 kernel phase: ``paged_attn_decode`` on CUDA tensors (the
+   hand-written paged-attention kernel) against its plain version
+   ``paged_attn_ref`` on the same tensors: the edge cases of the JAX
+   package's paged-attention tests (vector pos at page boundaries,
+   ``max_pages=1``, scratch-page inactive slots, sliding windows, the MLA
+   rope term with Dv != D, a position before every key), both
+   shared-memory plans of long caches, and gemma-2b's decode shape (H=8,
+   KV=1, D=256, P=16, 4 slots, pos up to 1031); fp32 and bf16 pools,
+   within the bounds of ``PAGED_TOL``.
+6. LM slice phase: gemma-2b at full width (18 layers, d_model 2048,
+   vocab 256000), random weights from a seeded generator, serving 8
+   greedy requests (prompts 40..1000 tokens, 32 new tokens each,
+   arrivals at steps 0..16) through ``serve_continuous(paged=True,
+   page_size=16, n_slots=4)``, in fp32 and in bf16, each with the kernel
+   and with the gather path. The kernel's launch count must grow by
+   exactly ``n_layers x decode steps`` on the kernel runs and by 0 on the
+   gather runs; the fp32 tokens of the two paths must be equal, and the
+   first decode step's logits of the two paths must agree (1e-4 in fp32,
+   the bf16 bound printed with its reason). Then engine metrics, peak
+   memory, a torch.profiler breakdown of one bf16 decode step, and the
+   kernel timed against its plain version, ``scaled_dot_product_attention``
+   and its bound at the run's busiest decode step.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Without CUDA the script
@@ -40,18 +62,29 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch.cells import make_cell, rnn_scan  # noqa: E402
-from repro_torch.configs import PAPER_MODELS  # noqa: E402
+from repro_torch.configs import PAPER_MODELS, get_config  # noqa: E402
 from repro_torch.core import (  # noqa: E402
     CSBSpec, csb_masks, csb_project, padded_csb_from_dense,
 )
 from repro_torch.kernels import (  # noqa: E402
     _build, csb_matvec, csb_mvm, csb_mvm_ref, densify, pad_to_grid,
+    paged_attn, paged_attn_decode, paged_attn_ref,
 )
-from repro_torch.serve import EngineConfig, rnn_serve_frames  # noqa: E402
+from repro_torch.models import lm as LM  # noqa: E402
+from repro_torch.obs import metrics as obs_metrics  # noqa: E402
+from repro_torch.obs import trace as obs_trace  # noqa: E402
+from repro_torch.serve import (  # noqa: E402
+    EngineConfig, PagePool, Request, bucket_len, rnn_serve_frames,
+    serve_continuous,
+)
+from repro_torch.serve.scheduler import (  # noqa: E402
+    fit_cache_len, insert_paged_cache,
+)
 
 SEED = 0
 RATE = 1 - 1 / 13          # the paper's 13x (benchmarks/bench_latency.py)
@@ -63,6 +96,7 @@ MVMS_PER_STEP = 9          # LSTMP: 4 W.x + 4 U.h + W_proj
 # H100 SXM peaks (NVIDIA data sheet): HBM3 rate, fp32 outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
+BF16_FLOPS = 989e12        # dense, tensor cores
 TOL = {torch.float32: 1e-5, torch.bfloat16: 5e-2}
 SWEEP = [((32, 32), 16, 16), ((64, 48), 16, 16), ((48, 64), 16, 32),
          ((128, 96), 32, 32), ((40, 24), 8, 8)]
@@ -72,6 +106,32 @@ KERNEL = {
     "source": "src/repro_torch/kernels/csrc/csb_mvm.cu",
     "replaces": "src/repro/kernels/csb_mvm.py:77",
 }
+PAGED_KERNEL = {
+    "name": "paged_attn",
+    "route": "cuda",
+    "source": "src/repro_torch/kernels/csrc/paged_attn.cu",
+    "replaces": "src/repro/kernels/paged_attn.py:49",
+}
+# the LM slice: gemma-2b served through the paged pool
+ARCH = "gemma-2b"
+PROMPT_LENS = (40, 97, 150, 256, 333, 512, 700, 1000)
+ARRIVALS = (0, 0, 0, 0, 4, 8, 12, 16)
+MAX_NEW = 32
+LM_ENGINE = EngineConfig(paged=True, page_size=16, n_slots=4)
+# B2 against its plain version. fp32 pools: summation order only, over
+# up to 64,000 keys of |v| < 5 (the largest error seen on the H100 is
+# 3.6e-7). bf16 pools: the kernel rounds q and the probabilities where the
+# plain version does, so the two differ only where a probability p lands
+# on the other side of a bf16 rounding boundary, which moves the output by
+# 2^-8 * p * |v|; 1e-3 admits such a flip wherever p * |v| < 0.25 (none
+# seen: 3.1e-7). Both are tighter than the 1e-5 / 1e-2 first stated.
+PAGED_TOL = {torch.float32: 1e-6, torch.bfloat16: 1e-3}
+# first decode step, kernel vs gather path: fp32 differs by summation
+# order only; in bf16 every layer rounds its activations to 8 bits, so an
+# attention output that lands the other side of a rounding boundary moves
+# by one bf16 ulp (2^-8 relative) and carries through the later layers
+LOGIT_TOL = {torch.float32: 1e-4, torch.bfloat16: 0.25}
+BF16_BYTES = 2
 
 
 def card_info() -> str:
@@ -278,9 +338,9 @@ def median_ms(fn, reps=50, warm=5) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in ev)
 
 
-def device_kernel_ms(fn, reps=20):
-    """Device time of csb_mvm_kernel per call of fn, from torch.profiler,
-    or None where the profiler shows no device time."""
+def device_kernel_ms(fn, name="csb_mvm_kernel", reps=20):
+    """Device time of the kernels named ``name`` per call of fn, from
+    torch.profiler, or None where the profiler shows no device time."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -291,7 +351,7 @@ def device_kernel_ms(fn, reps=20):
         torch.cuda.synchronize()
     total = sum(ev.self_device_time_total for ev in prof.key_averages()
                 if ev.device_type == torch.autograd.DeviceType.CUDA
-                and "csb_mvm_kernel" in ev.key)
+                and name in ev.key)
     return total / 1e3 / reps if total > 0 else None
 
 
@@ -385,6 +445,488 @@ def timing_phase(layers, dev) -> dict:
             "padded_bytes": padded_bytes}
 
 
+
+# ---------------------------------------------------------------------------
+# B2: the paged-attention decode kernel and the LM slice (gemma-2b)
+# ---------------------------------------------------------------------------
+
+def _rand(rng, shape, dev):
+    return torch.from_numpy(
+        rng.standard_normal(shape).astype(np.float32)).to(dev)
+
+
+def paged_case(rng, dev, *, b, h, kv, d, psz, n_pages, table, pos,
+               dv=None, d2=0, window=None):
+    """Random fp32 inputs of one paged-attention call."""
+    dv = dv or d
+    case = dict(q=_rand(rng, (b, h, d), dev),
+                k_pool=_rand(rng, (n_pages, psz, kv, d), dev),
+                v_pool=_rand(rng, (n_pages, psz, kv, dv), dev),
+                page_table=torch.tensor(table, dtype=torch.int32,
+                                        device=dev),
+                pos=pos, window=window, scale=1.0 / math.sqrt(d))
+    if d2:
+        case.update(q2=_rand(rng, (b, h, d2), dev),
+                    k2_pool=_rand(rng, (n_pages, psz, kv, d2), dev))
+    return case
+
+
+def _cast(case, pool_dtype, q_dtype):
+    out = dict(case)
+    for k in ("q", "q2"):
+        if k in out:
+            out[k] = out[k].to(q_dtype)
+    for k in ("k_pool", "v_pool", "k2_pool"):
+        if k in out:
+            out[k] = out[k].to(pool_dtype)
+    return out
+
+
+def compare_paged(label, case) -> float:
+    """Kernel against its plain version on the same CUDA tensors."""
+    out = paged_attn_decode(**case)
+    ref = paged_attn_ref(**case)
+    torch.cuda.synchronize()
+    tol = PAGED_TOL[case["k_pool"].dtype]
+    b, h, _ = case["q"].shape
+    want = (b, h, case["v_pool"].shape[-1])
+    if tuple(out.shape) != want or out.dtype != torch.float32:
+        raise AssertionError(f"{label}: got {tuple(out.shape)} {out.dtype},"
+                             f" want {want} float32")
+    if not torch.isfinite(out).all():
+        raise AssertionError(f"{label}: non-finite output")
+    err = float((out - ref).abs().max())
+    if not torch.allclose(out, ref, rtol=tol, atol=tol):
+        raise AssertionError(f"{label}: kernel and plain version differ, "
+                             f"max abs err {err:.3e} > tol {tol}")
+    return err
+
+
+def _slot_table(rng, pos_list, psz, max_pages):
+    """A page table whose slots own distinct random pages covering their
+    positions; unmapped entries name the scratch page (the last)."""
+    n_pages = len(pos_list) * max_pages
+    perm = rng.permutation(n_pages)
+    table = np.full((len(pos_list), max_pages), n_pages, np.int32)
+    k = 0
+    for i, p in enumerate(pos_list):
+        need = -(-(p + 1) // psz)
+        table[i, :need] = perm[k:k + need]
+        k += need
+    return table, n_pages + 1
+
+
+def paged_kernel_phase(dev) -> float:
+    """B2 kernel vs plain version; returns the max abs error at
+    gemma-2b's decode shape."""
+    rng = np.random.default_rng(SEED + 3)
+    t3 = [[0, 1, 2], [3, 4, 9], [5, 6, 7]]
+    cases = {
+        "vector pos at page boundaries": dict(
+            b=3, h=4, kv=2, d=8, psz=4, n_pages=9,
+            table=[[0, 1], [2, 3], [5, 6]], pos=[3, 4, 7]),
+        "max_pages=1, scalar pos": dict(
+            b=3, h=2, kv=1, d=16, psz=8, n_pages=4,
+            table=[[2], [0], [3]], pos=0),
+        "max_pages=1, vector pos": dict(
+            b=3, h=2, kv=1, d=16, psz=8, n_pages=4,
+            table=[[2], [0], [3]], pos=[3, 0, 7]),
+        "scratch-page inactive slot": dict(
+            b=2, h=4, kv=2, d=8, psz=4, n_pages=5,
+            table=[[0, 1], [4, 4]], pos=[6, 0]),
+        "window 6": dict(b=3, h=4, kv=2, d=16, psz=4, n_pages=10,
+                         table=t3, pos=[7, 2, 10], window=6),
+        "window 3, scalar pos": dict(b=3, h=4, kv=2, d=16, psz=4,
+                                     n_pages=10, table=t3, pos=9,
+                                     window=3),
+        "MLA rope term, Dv != D": dict(b=3, h=2, kv=1, d=32, dv=16, d2=8,
+                                       psz=4, n_pages=10, table=t3,
+                                       pos=[7, 2, 10]),
+        "rope, 16 heads per group, window": dict(
+            b=3, h=16, kv=1, d=16, dv=8, d2=8, psz=4, n_pages=10,
+            table=t3, pos=[7, 2, 10], window=5),
+        "GQA rep 3": dict(b=3, h=6, kv=2, d=16, psz=4, n_pages=10,
+                          table=t3, pos=[11, 0, 5]),
+        "position before every key": dict(b=3, h=4, kv=2, d=8, psz=4,
+                                          n_pages=10, table=t3,
+                                          pos=[-1, 3, 0]),
+    }
+    tab, n = _slot_table(rng, [7999, 4000], 16, 500)
+    cases["long cache, heads halved (8000 keys)"] = dict(
+        b=2, h=8, kv=1, d=64, psz=16, n_pages=n, table=tab,
+        pos=[7999, 4000])
+    tab, n = _slot_table(rng, [63999], 16, 4000)
+    cases["long cache, rescored tiles (64000 keys)"] = dict(
+        b=1, h=1, kv=1, d=32, psz=16, n_pages=n, table=tab, pos=[63999])
+    cases["long cache, rescored tiles, window 60000"] = dict(
+        b=1, h=1, kv=1, d=32, psz=16, n_pages=n, table=tab, pos=[63999],
+        window=60000)
+    gemma = [1031, 700, 333, 16]
+    tab, n = _slot_table(rng, gemma, 16, 65)
+    cases["gemma-2b decode shape"] = dict(b=4, h=8, kv=1, d=256, psz=16,
+                                          n_pages=n, table=tab, pos=gemma)
+    f32, bf16 = torch.float32, torch.bfloat16
+    n_cmp, gemma_err, worst = 0, 0.0, {f32: (0.0, ""), bf16: (0.0, "")}
+    for label, kw in cases.items():
+        case = paged_case(rng, dev, **kw)
+        for pool_dt, q_dt in ((f32, f32), (bf16, bf16), (bf16, f32)):
+            err = compare_paged(f"{label} [pools {pool_dt}, q {q_dt}]",
+                                _cast(case, pool_dt, q_dt))
+            n_cmp += 1
+            worst[pool_dt] = max(worst[pool_dt], (err, label))
+            if label.startswith("gemma"):
+                gemma_err = max(gemma_err, err)
+                print(f"  gemma-2b shape, pools {pool_dt}, q {q_dt}: max "
+                      f"abs err {err:.3e}")
+    print(f"paged kernel phase: {n_cmp} comparisons passed (tol "
+          f"{PAGED_TOL[f32]:g} fp32 pools, {PAGED_TOL[bf16]:g} bf16 pools); "
+          f"max abs err at gemma-2b's shape {gemma_err:.3e}; over all "
+          f"cases {worst[f32][0]:.3e} with fp32 pools ({worst[f32][1]}), "
+          f"{worst[bf16][0]:.3e} with bf16 pools ({worst[bf16][1]})")
+    return gemma_err
+
+
+def lm_requests(vocab: int) -> list:
+    rng = np.random.default_rng(SEED)
+    return [Request(rid=i, tokens=rng.integers(0, vocab, size=n),
+                    max_new_tokens=MAX_NEW, arrival=a)
+            for i, (n, a) in enumerate(zip(PROMPT_LENS, ARRIVALS))]
+
+
+def _tree(t, fn):
+    if isinstance(t, dict):
+        return {k: _tree(v, fn) for k, v in t.items()}
+    if isinstance(t, list):
+        return [_tree(v, fn) for v in t]
+    return fn(t)
+
+
+def build_lm(dev):
+    """gemma-2b at full width: fp32 weights from a seeded generator and
+    their bf16 copy (the config's own dtype)."""
+    cfg = get_config(ARCH)
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    p32 = LM.init_params(cfg32, gen, device=dev)
+    p16 = _tree(p32, lambda t: t.to(torch.bfloat16))
+    n = sum(t.numel() for t in _leaves(p32))
+    if n != cfg.param_count():
+        raise AssertionError(f"{n} parameters, the config counts "
+                             f"{cfg.param_count()}")
+    print(f"{ARCH}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.n_heads} heads, n_kv {cfg.n_kv}, head_dim {cfg.hd}, "
+          f"d_ff {cfg.d_ff}, vocab {cfg.vocab}: {n} parameters "
+          f"({4 * n / 1e9:.2f} GB fp32 + {2 * n / 1e9:.2f} GB bf16)")
+    return (cfg32, p32), (cfg, p16)
+
+
+def _leaves(t):
+    if isinstance(t, dict):
+        for v in t.values():
+            yield from _leaves(v)
+    elif isinstance(t, list):
+        for v in t:
+            yield from _leaves(v)
+    else:
+        yield t
+
+
+def serve_lm(cfg, params, use_kernel: bool, observe: bool = False):
+    """One run of the slice's trace; checks the kernel's launch count."""
+    reqs = lm_requests(cfg.vocab)
+    if observe:
+        obs_trace.enable()
+        obs_metrics.enable()
+    torch.cuda.reset_peak_memory_stats()
+    paged_attn.LAUNCHES = 0
+    res = serve_continuous(params, cfg, reqs,
+                           LM_ENGINE.replace(use_kernel=use_kernel))
+    launches = paged_attn.LAUNCHES
+    peak = torch.cuda.max_memory_allocated()
+    tr = obs_trace.disable() if observe else None
+    reg = obs_metrics.disable() if observe else None
+    steps = res.stats["decode_steps"]
+    want = cfg.n_layers * steps if use_kernel else 0
+    if launches != want:
+        raise AssertionError(
+            f"{cfg.dtype} use_kernel={use_kernel}: paged_attn launched "
+            f"{launches} times, expected {want} ({cfg.n_layers} layers x "
+            f"{steps} decode steps)")
+    for r in reqs:
+        toks = res.tokens.get(r.rid)
+        if toks is None or len(toks) != MAX_NEW \
+                or not all(0 <= t < cfg.vocab for t in toks):
+            raise AssertionError(f"request {r.rid}: bad tokens {toks}")
+    print(f"  {cfg.dtype} {'kernel' if use_kernel else 'gather'}: "
+          f"{steps} decode steps, {launches} kernel launches, "
+          f"steady {res.stats['steady_tokens_per_sec']} tok/s, "
+          f"{res.stats['tokens_per_sec']} tok/s over {res.wall_s:.2f} s "
+          f"wall (first calls {res.stats['compile_time_s']} s), "
+          f"occupancy {res.stats['occupancy']}, peak memory "
+          f"{peak / 1e9:.2f} GB")
+    return res, launches, peak, tr, reg
+
+
+def first_step(cfg, params, dev):
+    """The run's first decode step rebuilt by hand: the four requests
+    that arrive at step 0 prefilled (bucketed, as the engine does) into a
+    fresh pool; returns (cache, tokens, pos, table, head)."""
+    reqs = lm_requests(cfg.vocab)[:LM_ENGINE.n_slots]
+    psz = LM_ENGINE.page_size
+    cache_len = max(n + MAX_NEW for n in PROMPT_LENS)
+    max_pages = -(-cache_len // psz)
+    pool = PagePool(psz, LM_ENGINE.n_slots * max_pages, LM_ENGINE.n_slots,
+                    max_pages, device=dev)
+    cache = LM.init_paged_cache(cfg, pool.n_pages, psz, LM_ENGINE.n_slots,
+                                getattr(torch, cfg.dtype), dev)
+    head = LM.head_f32(params, cfg)
+    cur = torch.zeros((LM_ENGINE.n_slots, 1), dtype=torch.int32,
+                      device=dev)
+    with torch.no_grad():
+        for slot, r in enumerate(reqs):
+            plen = r.prompt_len
+            pool.reserve(slot, plen + MAX_NEW)
+            pool.ensure(slot, plen + 1)
+            toks = np.pad(r.tokens, (0, bucket_len(plen) - plen))
+            lg, c = LM.prefill(params, {"tokens": torch.as_tensor(
+                toks, device=dev)[None]}, cfg, last_pos=plen - 1,
+                head=head)
+            cur[slot, 0] = int(torch.argmax(lg[0]))
+            phys = list(pool.slot_pages(slot))
+            n_pad = 1 << max(len(phys) - 1, 0).bit_length()
+            phys += [pool.scratch_page] * (n_pad - len(phys))
+            insert_paged_cache(cache, fit_cache_len(c, len(phys) * psz),
+                               phys, slot)
+    pos = torch.tensor([r.prompt_len for r in reqs], dtype=torch.int32,
+                       device=dev)
+    return cache, cur, pos, pool.device_table(), head
+
+
+def first_step_logits(cfg, params, dev):
+    """First decode step's logits through the kernel and the gather path
+    on the same cache; returns (kernel, gather, step state)."""
+    cache, cur, pos, table, head = first_step(cfg, params, dev)
+    out = []
+    with torch.no_grad():
+        for use_kernel in (True, False):
+            c = {k: v.clone() for k, v in cache.items()}
+            lg, _ = LM.decode_step_paged(params, c, cur, pos, table, cfg,
+                                         use_kernel=use_kernel, head=head)
+            out.append(lg[:, 0])
+    return out[0], out[1], (cache, cur, pos, table, head)
+
+
+def replay_positions(vocab: int) -> list:
+    """Per decode step of the slice's trace, the (pos, active) arrays the
+    engine feeds the step: the scheduler and pool replayed on the host."""
+    from repro_torch.serve import SlotScheduler
+    reqs = lm_requests(vocab)
+    psz, n_slots = LM_ENGINE.page_size, LM_ENGINE.n_slots
+    max_pages = -(-max(n + MAX_NEW for n in PROMPT_LENS) // psz)
+    pool = PagePool(psz, n_slots * max_pages, n_slots, max_pages,
+                    device="cpu")
+    sched = SlotScheduler(n_slots, pool=pool)
+    for r in reqs:
+        sched.submit(r)
+    steps = []
+    while sched.has_work():
+        for slot, r in sched.admit():
+            pool.ensure(slot, r.prompt_len)
+            sched.started(slot, 0)
+        active = sched.active_mask()
+        if not active.any():
+            sched.idle_tick()
+            continue
+        steps.append((sched.positions(), active))
+        sched.advance(np.zeros(n_slots, np.int64))
+    return steps
+
+
+def lm_slice_phase(dev) -> dict:
+    (cfg32, p32), (cfg16, p16) = build_lm(dev)
+    out = {}
+    print(f"LM slice: {len(PROMPT_LENS)} greedy requests, prompts "
+          f"{PROMPT_LENS}, {MAX_NEW} new tokens each, arrivals at steps "
+          f"{ARRIVALS}, {LM_ENGINE.n_slots} slots, page size "
+          f"{LM_ENGINE.page_size}")
+    g32 = serve_lm(cfg32, p32, False)
+    k32 = serve_lm(cfg32, p32, True)
+    if k32[0].tokens != g32[0].tokens:
+        bad = [i for i in g32[0].tokens
+               if k32[0].tokens[i] != g32[0].tokens[i]]
+        raise AssertionError(f"fp32 tokens of the kernel path differ from "
+                             f"the gather path in requests {bad}")
+    print("  fp32: kernel tokens equal the gather path's, token for token")
+    k16 = serve_lm(cfg16, p16, True, observe=True)
+    g16 = serve_lm(cfg16, p16, False)
+    same = total = 0
+    for rid, toks in g16[0].tokens.items():
+        same += sum(a == b for a, b in zip(toks, k16[0].tokens[rid]))
+        total += len(toks)
+    print(f"  bf16: kernel and gather tokens agree at {same}/{total} "
+          f"positions")
+    steps = replay_positions(cfg16.vocab)
+    if len(steps) != k16[0].stats["decode_steps"]:
+        raise AssertionError(f"replayed {len(steps)} decode steps, the "
+                             f"run took {k16[0].stats['decode_steps']}")
+    for cfg, params in ((cfg32, p32), (cfg16, p16)):
+        lk, lg, state = first_step_logits(cfg, params, dev)
+        if not (torch.isfinite(lk).all() and torch.isfinite(lg).all()):
+            raise AssertionError(f"{cfg.dtype}: non-finite logits")
+        err = float((lk - lg).abs().max())
+        tol = LOGIT_TOL[getattr(torch, cfg.dtype)]
+        print(f"  first decode step, {cfg.dtype}: logits {tuple(lk.shape)}"
+              f", kernel vs gather max abs diff {err:.3e} (tol {tol}); "
+              f"max |logit| {float(lg.abs().max()):.3f}")
+        if err > tol:
+            raise AssertionError(f"{cfg.dtype} first-step logits differ by "
+                                 f"{err:.3e} > {tol}")
+        out[f"first_step_err_{cfg.dtype}"] = err
+        if cfg is cfg16:
+            out["step_state"] = state
+        else:
+            lg32 = lg
+    lg16 = first_step_logits(cfg16, p16, dev)[1]
+    print(f"  first decode step, bf16 vs fp32 gather logits: max abs diff "
+          f"{float((lg16 - lg32).abs().max()):.3e}")
+    res, launches, peak, tr, reg = k16
+    hist = reg.to_dict(series=False)["histograms"]
+    step = hist["serve/step/wall_us"]
+    ttft = hist["serve/req/ttft_us"]
+    buckets: dict = {}
+    for ph, name, _, dur, _, args in tr.events():
+        if ph == "X" and name == "serve/req/prefill":
+            buckets.setdefault((bucket_len(args["tokens"]), args["cold"]),
+                               []).append(dur / 1e3)
+    print(f"  bf16 kernel run: steady_tokens_per_sec "
+          f"{res.stats['steady_tokens_per_sec']}, decode step wall p50 "
+          f"{step['p50']:.1f} us, p99 {step['p99']:.1f} us over "
+          f"{step['count']} steps; TTFT p50 {ttft['p50']:.1f} us, p99 "
+          f"{ttft['p99']:.1f} us; peak memory {peak / 1e9:.2f} GB")
+    for (bk, cold), durs in sorted(buckets.items()):
+        print(f"    prefill bucket {bk:5d}{' (first call)' if cold else ''}"
+              f": {', '.join(f'{d:.1f}' for d in durs)} us")
+    out.update(
+        cfg=cfg16, params=p16, steps=steps,
+        launches=k32[1] + k16[1], steady_tokens_per_sec=res.stats[
+            "steady_tokens_per_sec"],
+        step_p50_us=step["p50"], step_p99_us=step["p99"],
+        ttft_p50_us=ttft["p50"], ttft_p99_us=ttft["p99"],
+        peak_gb=peak / 1e9, bf16_token_agreement=same / total)
+    return out
+
+
+def decode_profile(lm, n=5) -> None:
+    """Where one bf16 decode step's time goes: torch.profiler over ``n``
+    steps of the first decode step's state, device time by kernel and
+    the device's busy share of the wall time."""
+    from torch.profiler import ProfilerActivity, profile
+    cfg, params = lm["cfg"], lm["params"]
+    cache, cur, pos, table, head = lm["step_state"]
+
+    def run():
+        for _ in range(n):
+            LM.decode_step_paged(params, cache, cur, pos, table, cfg,
+                                 use_kernel=True, head=head)
+        torch.cuda.synchronize()
+
+    with torch.no_grad():
+        run()
+        t0 = time.perf_counter()
+        run()
+        plain_us = (time.perf_counter() - t0) * 1e6 / n
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            run()
+            wall_us = (time.perf_counter() - t0) * 1e6 / n
+    kernels = [ev for ev in prof.key_averages()
+               if ev.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us = sum(ev.self_device_time_total for ev in kernels) / n
+    print(f"decode-step profile (bf16, kernel path, {n} steps at the first "
+          f"step's positions, torch.profiler): wall {wall_us:.1f} us/step "
+          f"profiled, {plain_us:.1f} us/step unprofiled; device busy "
+          f"{busy_us:.1f} us/step ({100 * busy_us / wall_us:.1f}% of the "
+          f"profiled wall, {100 * busy_us / plain_us:.1f}% of the "
+          f"unprofiled), {sum(ev.count for ev in kernels) / n:.0f} "
+          f"kernels/step")
+    for ev in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
+        print(f"  {ev.self_device_time_total / n:8.1f} us/step "
+              f"{ev.count // n:4d}x  {ev.key[:90]}")
+
+
+def paged_timing_phase(lm, dev) -> dict:
+    """B2 at the busiest decode step of the slice's trace (bf16, one
+    layer's pools): kernel, plain version, SDPA on the gathered K/V (the
+    library yardstick; the gather timed apart) and the bound."""
+    cfg = lm["cfg"]
+    pos_h, active = max(lm["steps"],
+                        key=lambda s: int((s[0] + 1)[s[1]].sum()))
+    rng = np.random.default_rng(SEED + 4)
+    psz = LM_ENGINE.page_size
+    max_pages = -(-max(n + MAX_NEW for n in PROMPT_LENS) // psz)
+    tab, n_pages = _slot_table(rng, pos_h.tolist(), psz, max_pages)
+    b, h, kv, d = len(pos_h), cfg.n_heads, cfg.n_kv, cfg.hd
+    bf16 = torch.bfloat16
+    q = _rand(rng, (b, h, d), dev).to(bf16)
+    kp = _rand(rng, (n_pages, psz, kv, d), dev).to(bf16)
+    vp = _rand(rng, (n_pages, psz, kv, d), dev).to(bf16)
+    table = torch.from_numpy(tab).to(dev)
+    pos = torch.from_numpy(pos_h.astype(np.int32)).to(dev)
+    scale = 1.0 / math.sqrt(d)
+    t = max_pages * psz
+    kpos = torch.arange(t, device=dev)
+    mask = (kpos[None, :] <= pos[:, None].long())[:, None, None, :]
+
+    def gather():
+        return (kp[table.long()].reshape(b, t, kv, d).transpose(1, 2),
+                vp[table.long()].reshape(b, t, kv, d).transpose(1, 2))
+
+    kg, vg = gather()
+    qs = q[:, :, None, :]
+
+    def library():
+        return F.scaled_dot_product_attention(
+            qs, kg, vg, attn_mask=mask, scale=scale, enable_gqa=True)
+
+    def kernel():
+        return paged_attn.paged_attn_cuda(q, kp, vp, table, pos,
+                                          scale=scale)
+
+    def plain_version():
+        return paged_attn_ref(q, kp, vp, table, pos, scale=scale)
+
+    lib_err = float((library()[:, :, 0].float() - kernel()).abs().max())
+    ms = median_ms(kernel)
+    plain_ms = median_ms(plain_version)
+    library_ms = median_ms(library)
+    gather_ms = median_ms(gather)
+    dev_ms = device_kernel_ms(kernel, "paged_attn_kernel")
+    live = int((pos_h + 1).sum())
+    kv_bytes = live * kv * 2 * d * BF16_BYTES
+    io_bytes = (q.numel() * BF16_BYTES + b * h * d * 4 + table.numel() * 4
+                + pos.numel() * 4)
+    flops = 2 * live * h * 2 * d
+    bytes_s = (kv_bytes + io_bytes) / HBM_BYTES_PER_S
+    ops_s = flops / BF16_FLOPS
+    bound_ms = max(bytes_s, ops_s) * 1e3
+    print(f"paged timing, one layer at the busiest decode step (bf16, "
+          f"pos {pos_h.tolist()}, active {active.tolist()}, {live} live "
+          f"keys; median of 50, CUDA events): kernel {ms:.4f} ms (device "
+          f"time {'not measured' if dev_ms is None else f'{dev_ms:.4f} ms'}"
+          f" from torch.profiler), plain {plain_ms:.4f} ms, library SDPA "
+          f"{library_ms:.4f} ms on pre-gathered K/V (the gather alone "
+          f"{gather_ms:.4f} ms; SDPA vs kernel max abs diff "
+          f"{lib_err:.3e}), bound {bound_ms:.5f} ms ({kv_bytes} live K/V "
+          f"bytes + {io_bytes} q/out/table/pos bytes; {flops} flops); "
+          f"{cfg.n_layers} launches per decode step")
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": bound_ms,
+            "bound_by": "bytes" if bytes_s >= ops_s else "operations",
+            "device_ms": dev_ms, "gather_ms": gather_ms,
+            "live_kv_bytes": kv_bytes}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA device; none is available",
@@ -393,22 +935,43 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
+    t_start = time.perf_counter()
+
+    def phase(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        print(f"[phase {name}: {time.perf_counter() - t0:.1f} s]")
+        return out
+
     card_info()
-    build()
+    phase("build", build)
     layers, frames = build_sr1(dev)
     sr1_shapes = sorted({p.shape for _, csb, _ in layers
                          for p in csb.values()
                          if not isinstance(p, torch.Tensor)})
-    max_err = kernel_phase(dev, sr1_shapes)
-    sl = slice_phase(layers, frames)
-    tm = timing_phase(layers, dev)
-    frame_profile(layers, frames)
+    max_err = phase("B1 kernel", kernel_phase, dev, sr1_shapes)
+    sl = phase("SR1 slice", slice_phase, layers, frames)
+    tm = phase("B1 timing", timing_phase, layers, dev)
+    phase("SR1 frame profile", frame_profile, layers, frames)
+    paged_err = phase("B2 kernel", paged_kernel_phase, dev)
+    lm = phase("LM slice", lm_slice_phase, dev)
+    phase("LM decode profile", decode_profile, lm)
+    pt = phase("B2 timing", paged_timing_phase, lm, dev)
+    print(f"[total {time.perf_counter() - t_start:.1f} s]")
     print(json.dumps({"kernels": [{
         **KERNEL, "launches": sl["launches"], "max_abs_err": max_err,
         "ms": tm["ms"], "plain_ms": tm["plain_ms"],
         "bound_ms": tm["bound_ms"], "bound_by": tm["bound_by"],
         "library_ms": tm["library_ms"], "device_ms": tm["device_ms"],
         "us_per_frame": sl["us_per_frame"], "frame_p99_us": sl["p99_us"],
+    }, {
+        **PAGED_KERNEL, "launches": lm["launches"],
+        "max_abs_err": paged_err, "ms": pt["ms"],
+        "plain_ms": pt["plain_ms"], "bound_ms": pt["bound_ms"],
+        "bound_by": pt["bound_by"], "library_ms": pt["library_ms"],
+        "device_ms": pt["device_ms"], "gather_ms": pt["gather_ms"],
+        "steady_tokens_per_sec": lm["steady_tokens_per_sec"],
+        "step_p99_us": lm["step_p99_us"],
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,0 +1,18 @@
+"""internlm2-20b [dense] — GQA kv=8.
+48L d_model=6144 48H d_ff=16384 vocab=92544. [arXiv:2403.17297]
+"""
+from repro_torch.models.config import ModelConfig
+
+CONFIG = ModelConfig(
+    name="internlm2-20b",
+    family="dense",
+    mixer="attn",
+    ffn="swiglu",
+    n_layers=48,
+    d_model=6144,
+    n_heads=48,
+    n_kv=8,
+    head_dim=128,
+    d_ff=16384,
+    vocab=92544,
+)

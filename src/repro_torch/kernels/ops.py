@@ -1,10 +1,15 @@
-"""``csb_matvec``: the public CSB matrix-vector product.
+"""The public entry points of the port's kernels.
 
-It accepts any leading batch shape (including none — a single vector,
-the paper's MVM case), pads batch/feature dims to the kernel's tile grid
+``csb_matvec`` is the CSB matrix-vector product. It accepts any leading
+batch shape (including none — a single vector, the paper's MVM case),
+pads batch/feature dims to the kernel's tile grid
 and strips the padding off the result, as ``repro.kernels.ops`` does.
 The tensor's device picks the implementation: on the card the CUDA
 kernel, on the CPU its plain version, with the same padded arguments.
+
+``paged_attn_decode`` is the paged-attention decode step: on a CPU
+tensor ``ref.paged_attn_ref``, on any other the CUDA kernel
+(``paged_attn.paged_attn_cuda``), which raises off the card.
 """
 from __future__ import annotations
 
@@ -15,7 +20,8 @@ from repro_torch._device import resolve_device
 from repro_torch.core.csb_format import PaddedCSB
 
 from .csb_mvm import csb_mvm_cuda
-from .ref import csb_mvm_ref
+from .paged_attn import paged_attn_cuda
+from .ref import csb_mvm_ref, paged_attn_ref
 
 
 def _round_up(x: int, mult: int) -> int:
@@ -59,3 +65,17 @@ def csb_matvec(p: PaddedCSB, x: torch.Tensor, *, batch_tile: int = 8,
     else:
         y = csb_mvm_ref(*arrays, grid=p.grid, block=p.block)
     return y[: x2.shape[0], : p.shape[0]].reshape(*batch_shape, p.shape[0])
+
+
+def paged_attn_decode(q, k_pool, v_pool, page_table, pos, *, scale: float,
+                      q2=None, k2_pool=None, window: int | None = None
+                      ) -> torch.Tensor:
+    """Single-query decode attention of every slot over its pages;
+    returns (B, H, Dv) fp32 (see ``paged_attn.paged_attn_cuda`` for the
+    shapes). ``pos`` is an int, (1,) or (B,)."""
+    pos = torch.as_tensor(pos, dtype=torch.int32, device=q.device)
+    pos = pos.reshape(-1)
+    kw = dict(scale=scale, q2=q2, k2_pool=k2_pool, window=window)
+    if q.device.type == "cpu":
+        return paged_attn_ref(q, k_pool, v_pool, page_table, pos, **kw)
+    return paged_attn_cuda(q, k_pool, v_pool, page_table, pos, **kw)

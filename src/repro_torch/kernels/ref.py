@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the CSB-MVM kernel.
+"""Plain PyTorch versions of the port's kernels.
 
 ``csb_mvm_ref`` takes exactly the arguments of the CUDA kernel's wrapper
 (``csb_mvm.csb_mvm_cuda``) and returns what the kernel returns: the
@@ -7,6 +7,14 @@ with the pad lanes masked by ``m``/``n``. On the CPU ``ops.csb_matvec``
 runs it in place of the kernel; on the card it is only the comparison
 point. ``densify`` rebuilds the ``(out, in)`` matrix; it is exact, since
 each element is placed, never summed with another.
+
+``paged_attn_ref`` takes exactly the arguments of the paged-attention
+kernel's wrapper (``paged_attn.paged_attn_cuda``) and returns what the
+kernel returns: the ``(B, H, Dv)`` fp32 single-query attention of every
+slot over its pages, computed as the JAX package's gather path computes
+it (``repro.models.layers.attn_decode_paged``): gather the table's pages,
+scores in fp32, mask with ``-1e30``, ``exp(s - max) / sum``, then the
+probabilities rounded to the pool's type times V in fp32.
 """
 from __future__ import annotations
 
@@ -47,3 +55,43 @@ def csb_mvm_ref(vals, row_idx, col_idx, m, n, x, *, grid, block
             f"x has {x.shape[-1]} columns, the block grid {grid[1] * block[1]}")
     w = _dense_padded(vals, row_idx, col_idx, m, n, grid, block)
     return x.to(torch.float32) @ w.to(torch.float32).T
+
+
+def paged_attn_ref(q, k_pool, v_pool, page_table, pos, *, scale: float,
+                   q2=None, k2_pool=None, window: int | None = None
+                   ) -> torch.Tensor:
+    """(B, H, Dv) fp32: q (B, H, D) against the pools (N, P, KV, D|Dv)
+    through page_table (B, max_pages); ``pos`` (the position decoded this
+    step) is an int, (1,) or (B,); optional rope term q2 (B, H, D2) with
+    k2_pool (N, P, KV, D2); keys ``kpos <= pos`` (and
+    ``kpos > pos - window``) attend."""
+    b, h, d = q.shape
+    mp = page_table.shape[1]
+    dev = q.device
+
+    def gather(pool):                      # (B, max_pages * P, KV, Dx)
+        g = pool[page_table.long()]
+        return g.reshape((b, mp * pool.shape[1]) + tuple(pool.shape[2:]))
+
+    kg, vg = gather(k_pool), gather(v_pool)
+    t, kv = kg.shape[1], kg.shape[2]
+    rep = h // kv
+    f32 = torch.float32
+    qh = q.reshape(b, kv, rep, d).to(kg.dtype)
+    sc = torch.einsum("bgrd,bkgd->bgrk", qh.to(f32), kg.to(f32))
+    if q2 is not None:
+        k2g = gather(k2_pool)
+        q2h = q2.reshape(b, kv, rep, -1).to(k2g.dtype)
+        sc = sc + torch.einsum("bgrd,bkgd->bgrk", q2h.to(f32), k2g.to(f32))
+    row = torch.as_tensor(pos, dtype=torch.int64, device=dev).reshape(-1)
+    row = row.expand(b)
+    kpos = torch.arange(t, device=dev)
+    mask = kpos[None, :] <= row[:, None]
+    if window is not None:
+        mask &= kpos[None, :] > row[:, None] - window
+    sc = torch.where(mask[:, None, None, :], sc * scale,
+                     torch.tensor(-1e30, dtype=f32, device=dev))
+    e = torch.exp(sc - torch.amax(sc, dim=-1, keepdim=True))
+    p = e / torch.sum(e, dim=-1, keepdim=True)
+    o = torch.einsum("bgrk,bkgd->bgrd", p.to(vg.dtype).to(f32), vg.to(f32))
+    return o.reshape(b, h, -1)
