@@ -10,8 +10,10 @@ Phases, each of which raises (and the script exits nonzero) on failure:
    per source, all started together) and print the build time.
 3. Kernel phase: ``csb_matvec`` on CUDA tensors (the hand-written kernel)
    against its plain PyTorch version ``csb_mvm_ref`` on the same tensors,
-   over the CPU test sweep plus the SR1 matrices, at batches 1, 8 and 13:
-   within 1e-5 in fp32 (summation order only) and 5e-2 in bf16.
+   over the CPU test sweep, one, 33 and 128 block-columns and a
+   block-row of empty (m = 0) blocks at batches 1, 7, 8 and 17, plus the
+   SR1 matrices at batches 1, 8 and 13: within 1e-5 in fp32 (summation
+   order only) and 5e-2 in bf16.
 4. Slice phase: the paper's SR1 model (two LSTMP layers, 153/512 -> 1024,
    projection 512, Table 1) at full width, CSB-pruned 13x with 32x32
    blocks, weights and frames from a numpy seed, served for 200 frames at
@@ -21,29 +23,43 @@ Phases, each of which raises (and the script exits nonzero) on failure:
    within 1e-4 with the same cells run on the densified weights through
    the dense branch (fp32 summation order, compounded over 200 recurrent
    steps). Then it times the kernel, its plain version and one PyTorch
-   matmul on the dense matrix for the 18 CSB MVMs of one SR1 frame.
+   matmul on the dense matrix for the 18 CSB MVMs of one SR1 frame: by
+   CUDA events around each call, by the profiler's device time, and by
+   replaying 20 calls captured in a CUDA graph (no host in the time).
 5. B2 kernel phase: ``paged_attn_decode`` on CUDA tensors (the
    hand-written paged-attention kernel) against its plain version
    ``paged_attn_ref`` on the same tensors: the edge cases of the JAX
    package's paged-attention tests (vector pos at page boundaries,
    ``max_pages=1``, scratch-page inactive slots, sliding windows, the MLA
-   rope term with Dv != D, a position before every key), both
-   shared-memory plans of long caches, and gemma-2b's decode shape (H=8,
-   KV=1, D=256, P=16, 4 slots, pos up to 1031); fp32 and bf16 pools,
-   within the bounds of ``PAGED_TOL``.
+   rope term with Dv != D, a position before every key), long caches
+   (8,000 and 64,000 keys), the boundaries of the key splits at gemma-2b's
+   head shape (pos on a split edge and one past it, live keys in one
+   split, a window that leaves one split live, an all-masked slot, a
+   capacity that is not a multiple of the split, 1 and 16 slots), MLA's
+   128 heads with the rope term, head dims that are not multiples of 8
+   (one element per load), and gemma-2b's decode shape (H=8, KV=1,
+   D=256, P=16, 4 slots, pos up to 1031); fp32 and bf16 pools, within the
+   bounds of ``PAGED_TOL``. With fp32 pools, MLA's and gemma-2b's cases
+   also hold the kernel, at the same bound, against the function computed
+   in fp64 throughout, and print how far the plain version and the same
+   formulation summed in fp32 stand from it.
 6. LM slice phase: gemma-2b at full width (18 layers, d_model 2048,
    vocab 256000), random weights from a seeded generator, serving 8
    greedy requests (prompts 40..1000 tokens, 32 new tokens each,
    arrivals at steps 0..16) through ``serve_continuous(paged=True,
    page_size=16, n_slots=4)``, in fp32 and in bf16, each with the kernel
-   and with the gather path. The kernel's launch count must grow by
-   exactly ``n_layers x decode steps`` on the kernel runs and by 0 on the
+   and with the gather path. The kernels' launch count must grow by
+   exactly ``2 x n_layers x decode steps`` on the kernel runs (a call
+   launches the scores kernel and the PV kernel) and by 0 on the
    gather runs; the fp32 tokens of the two paths must be equal, and the
    first decode step's logits of the two paths must agree (1e-4 in fp32,
    the bf16 bound printed with its reason). Then engine metrics, peak
    memory, a torch.profiler breakdown of one bf16 decode step, and the
-   kernel timed against its plain version, ``scaled_dot_product_attention``
-   and its bound at the run's busiest decode step.
+   kernel (its two launches) timed against its plain version,
+   ``scaled_dot_product_attention`` (with and without the gather of the
+   pages) and its bound at the run's busiest decode step, in the same
+   three ways; the kernels one call launches and their grids are read
+   from the profiler's trace.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Without CUDA the script
@@ -54,9 +70,11 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -132,6 +150,10 @@ PAGED_TOL = {torch.float32: 1e-6, torch.bfloat16: 1e-3}
 # by one bf16 ulp (2^-8 relative) and carries through the later layers
 LOGIT_TOL = {torch.float32: 1e-4, torch.bfloat16: 0.25}
 BF16_BYTES = 2
+# kernels in one bf16 decode step of gemma-2b under the first B2 design,
+# one launch per layer (decode-step profile on an H100, PERF.md)
+FIRST_DESIGN_KERNELS_PER_STEP = 1633
+B2_NAMES = ("paged_attn_scores_kernel", "paged_attn_pv_kernel")
 
 
 def card_info() -> str:
@@ -238,6 +260,22 @@ def kernel_phase(dev, sr1_shapes) -> float:
         raise AssertionError("densify is not exact on empty blocks")
     compare("empty blocks", p, x(3, 32))
     n += 1
+    # the parallel layout: one block-column, 33 and 128 (a 4096-wide
+    # input), a block-row of m = 0 blocks only, batches around the tile
+    for label, shape in (("Bc 1", (64, 32)), ("Bc 33", (64, 33 * BLOCK)),
+                         ("Bc 128", (64, 128 * BLOCK))):
+        _, p = pruned(rng, shape, BLOCK, BLOCK, RATE, dev)
+        for b in (1, 7, 8, 17):
+            compare(f"{label} B{b}", p, x(b, shape[1]))
+            n += 1
+    z, _ = pruned(rng, (96, 256), BLOCK, BLOCK, RATE, dev)
+    z[BLOCK:2 * BLOCK] = 0
+    p = padded_csb_from_dense(z, BLOCK, BLOCK, device=dev)
+    if int(p.m.reshape(p.grid)[1].abs().sum()) != 0:
+        raise AssertionError("block-row 1 should hold only m = 0 blocks")
+    for b in (1, 7, 8, 17):
+        compare(f"m = 0 block-row B{b}", p, x(b, 256))
+        n += 1
     sr1_err = 0.0
     for shape in sr1_shapes:
         _, p = pruned(rng, shape, BLOCK, BLOCK, RATE, dev)
@@ -338,9 +376,29 @@ def median_ms(fn, reps=50, warm=5) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in ev)
 
 
-def device_kernel_ms(fn, name="csb_mvm_kernel", reps=20):
-    """Device time of the kernels named ``name`` per call of fn, from
-    torch.profiler, or None where the profiler shows no device time."""
+def graph_ms(fn, calls=20, reps=20) -> float:
+    """Device time per call of fn without the host: ``calls`` calls
+    captured in one CUDA graph, the graph replayed ``reps`` times between
+    CUDA events; the median replay over ``calls``. Gaps between the
+    kernels of one call count, the host's enqueue does not."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    return median_ms(graph.replay, reps=reps, warm=2) / calls
+
+
+def device_kernel_ms(fn, names=("csb_mvm_kernel",), reps=20):
+    """Device time per call of fn of every kernel whose name contains one
+    of ``names`` (every kernel if ``names`` is None), from torch.profiler:
+    (total ms, {kernel: ms}), or (None, {}) where the profiler shows no
+    device time."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -349,10 +407,44 @@ def device_kernel_ms(fn, name="csb_mvm_kernel", reps=20):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    total = sum(ev.self_device_time_total for ev in prof.key_averages()
-                if ev.device_type == torch.autograd.DeviceType.CUDA
-                and name in ev.key)
-    return total / 1e3 / reps if total > 0 else None
+    each = {ev.key: ev.self_device_time_total / 1e3 / reps
+            for ev in prof.key_averages()
+            if ev.device_type == torch.autograd.DeviceType.CUDA
+            and (names is None or any(nm in ev.key for nm in names))}
+    total = sum(each.values())
+    return (total if total > 0 else None), each
+
+
+def traced_kernels(fn, names, calls=3) -> list:
+    """(name, grid) of every kernel whose name contains one of ``names``
+    that ``calls`` calls of fn launch, read from torch.profiler's trace
+    after two calls of warm-up (a trace of one call alone can miss its
+    first kernel); the grid is None where the trace does not record it."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=2, active=calls),
+                     on_trace_ready=lambda p: p.export_chrome_trace(path)
+                     ) as prof:
+            for _ in range(2 + calls):
+                fn()
+                torch.cuda.synchronize()
+                prof.step()
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    out = []
+    for ev in events:
+        if (str(ev.get("cat", "")).lower() == "kernel"
+                and any(nm in ev.get("name", "") for nm in names)):
+            grid = ev.get("args", {}).get("grid")
+            out.append((ev["name"], None if grid is None else tuple(grid)))
+    return out
+
+
+def _ms(t) -> str:
+    return "not measured" if t is None else f"{t:.4f} ms"
 
 
 def frame_profile(layers, frames, n=20) -> None:
@@ -412,7 +504,7 @@ def timing_phase(layers, dev) -> dict:
         for p, _, xp, _ in items:
             csb_mvm.csb_mvm_cuda(p.vals, p.row_idx, p.col_idx, p.m, p.n, xp,
                                  grid=p.grid, block=p.block, batch_tile=8,
-                                 group=1)
+                                 group=1, rows=1)
 
     def plain_version():
         for p, _, xp, _ in items:
@@ -426,7 +518,9 @@ def timing_phase(layers, dev) -> dict:
     ms = median_ms(kernel)
     plain_ms = median_ms(plain_version)
     library_ms = median_ms(library)
-    dev_ms = device_kernel_ms(kernel)
+    dev_ms, _ = device_kernel_ms(kernel)
+    library_dev_ms, _ = device_kernel_ms(library, None)
+    kernel_graph_ms, library_graph_ms = graph_ms(kernel), graph_ms(library)
     bytes_s = live_bytes / HBM_BYTES_PER_S
     ops_s = flops / FP32_FLOPS
     bound_ms = max(bytes_s, ops_s) * 1e3
@@ -434,14 +528,19 @@ def timing_phase(layers, dev) -> dict:
           f"(median of 50, CUDA events): kernel {ms:.4f} ms "
           f"(device time {'not measured' if dev_ms is None else f'{dev_ms:.4f} ms'}"
           f" from torch.profiler), plain {plain_ms:.4f} ms, library "
-          f"matmul {library_ms:.4f} ms, bound {bound_ms:.5f} ms "
+          f"matmul {library_ms:.4f} ms (device time "
+          f"{_ms(library_dev_ms)}); replayed from a CUDA graph (no host): "
+          f"kernel {kernel_graph_ms:.4f} ms, library {library_graph_ms:.4f}"
+          f" ms; bound {bound_ms:.5f} ms "
           f"({live_bytes} live bytes; padded vals+indices "
           f"{padded_bytes} bytes = {padded_bytes / HBM_BYTES_PER_S * 1e3:.5f}"
           f" ms; {flops} flops)")
     return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
             "bound_ms": bound_ms,
             "bound_by": "bytes" if bytes_s >= ops_s else "operations",
-            "device_ms": dev_ms, "live_bytes": live_bytes,
+            "device_ms": dev_ms, "library_device_ms": library_dev_ms,
+            "graph_ms": kernel_graph_ms, "library_graph_ms": library_graph_ms,
+            "live_bytes": live_bytes,
             "padded_bytes": padded_bytes}
 
 
@@ -482,11 +581,73 @@ def _cast(case, pool_dtype, q_dtype):
     return out
 
 
-def compare_paged(label, case) -> float:
-    """Kernel against its plain version on the same CUDA tensors."""
+def paged_in(case, dtype):
+    """The plain version's function on a case of fp32 pools and q,
+    computed in ``dtype`` throughout: float64 gives the exact answer to
+    hold the kernel and the plain version against, float32 the same
+    formulation with every sum in fp32 (score dot products included)."""
+    q, table = case["q"], case["page_table"]
+    b, h, d = q.shape
+    mp = table.shape[1]
+
+    def gather(pool):
+        g = pool[table.long()]
+        return g.reshape((b, mp * pool.shape[1]) + tuple(pool.shape[2:])
+                         ).to(dtype)
+
+    kg, vg = gather(case["k_pool"]), gather(case["v_pool"])
+    t, kv = kg.shape[1], kg.shape[2]
+    sc = torch.einsum("bgrd,bkgd->bgrk",
+                      q.reshape(b, kv, h // kv, d).to(dtype), kg)
+    if "q2" in case:
+        sc = sc + torch.einsum(
+            "bgrd,bkgd->bgrk",
+            case["q2"].reshape(b, kv, h // kv, -1).to(dtype),
+            gather(case["k2_pool"]))
+    row = torch.as_tensor(case["pos"], device=q.device).reshape(-1)
+    row = row.long().expand(b)
+    kpos = torch.arange(t, device=q.device)
+    mask = kpos[None, :] <= row[:, None]
+    if case["window"] is not None:
+        mask &= kpos[None, :] > row[:, None] - case["window"]
+    sc = torch.where(mask[:, None, None, :], sc * case["scale"],
+                     torch.tensor(-1e30, dtype=dtype, device=q.device))
+    e = torch.exp(sc - torch.amax(sc, dim=-1, keepdim=True))
+    p = e / torch.sum(e, dim=-1, keepdim=True)
+    return torch.einsum("bgrk,bkgd->bgrd", p, vg).reshape(b, h, -1)
+
+
+def exact_check(label, case, out, ref) -> None:
+    """The kernel's output against the function in fp64, at the fp32
+    bound; prints its distance beside the plain version's and the
+    fp32-summed formulation's, which show how far the plain version
+    itself stands from the exact answer."""
+    exact = paged_in(case, torch.float64)
+    fp32_sums = paged_in(case, torch.float32)
+    torch.cuda.synchronize()
+    tol = PAGED_TOL[torch.float32]
+    errs = [float((x.double() - exact).abs().max())
+            for x in (out, ref, fp32_sums)]
+    print(f"  {label}, fp32: max abs err vs fp64: kernel {errs[0]:.3e}, "
+          f"plain version {errs[1]:.3e}, fp32-summed formulation "
+          f"{errs[2]:.3e}")
+    if not torch.allclose(out.double(), exact, rtol=tol, atol=tol):
+        raise AssertionError(f"{label}: the kernel is more than {tol} from "
+                             f"the fp64 answer, max abs err {errs[0]:.3e}")
+
+
+# cases of fp32 pools also held against the answer in fp64
+EXACT_CASES = ("MLA 128 heads, rope, D 512 + 64", "gemma-2b decode shape")
+
+
+def compare_paged(label, case, exact=False) -> float:
+    """Kernel against its plain version on the same CUDA tensors (and
+    against fp64 where ``exact``)."""
     out = paged_attn_decode(**case)
     ref = paged_attn_ref(**case)
     torch.cuda.synchronize()
+    if exact:
+        exact_check(label, case, out, ref)
     tol = PAGED_TOL[case["k_pool"].dtype]
     b, h, _ = case["q"].shape
     want = (b, h, case["v_pool"].shape[-1])
@@ -552,15 +713,45 @@ def paged_kernel_phase(dev) -> float:
                                           pos=[-1, 3, 0]),
     }
     tab, n = _slot_table(rng, [7999, 4000], 16, 500)
-    cases["long cache, heads halved (8000 keys)"] = dict(
+    cases["long cache (8000 keys)"] = dict(
         b=2, h=8, kv=1, d=64, psz=16, n_pages=n, table=tab,
         pos=[7999, 4000])
     tab, n = _slot_table(rng, [63999], 16, 4000)
-    cases["long cache, rescored tiles (64000 keys)"] = dict(
+    cases["long cache (64000 keys)"] = dict(
         b=1, h=1, kv=1, d=32, psz=16, n_pages=n, table=tab, pos=[63999])
-    cases["long cache, rescored tiles, window 60000"] = dict(
+    cases["long cache (64000 keys), window 60000"] = dict(
         b=1, h=1, kv=1, d=32, psz=16, n_pages=n, table=tab, pos=[63999],
         window=60000)
+    # the split boundaries, at gemma-2b's head shape (H 8, KV 1, D 256,
+    # P 16, 65 pages: 33 splits of 2 pages, the last of one)
+    gem = dict(h=8, kv=1, d=256, psz=16)
+    split_cases = {
+        "pos on a split edge and one key past it": [31, 32, 63, 64],
+        "live keys in one split (pos 5)": [5, 700, 1039, 0],
+        "all-masked slot (pos -1)": [-1, 500, 1039, 16],
+    }
+    for label, pl in split_cases.items():
+        tab, n = _slot_table(rng, pl, 16, 65)
+        cases[label] = dict(b=4, n_pages=n, table=tab, pos=pl, **gem)
+    tab, n = _slot_table(rng, [39, 103, 1031, 7], 16, 65)
+    cases["window 8 leaving one split live"] = dict(
+        b=4, n_pages=n, table=tab, pos=[39, 103, 1031, 7], window=8, **gem)
+    pl = [1599, 1590, 800, 1]   # 100 pages: splits of 3, the last of 1
+    tab, n = _slot_table(rng, pl, 16, 100)
+    cases["capacity not a multiple of the split (100 pages)"] = dict(
+        b=4, n_pages=n, table=tab, pos=pl, **gem)
+    for b in (1, 16):
+        pl = rng.integers(0, 1040, size=b).tolist()
+        tab, n = _slot_table(rng, pl, 16, 65)
+        cases[f"B = {b}"] = dict(b=b, n_pages=n, table=tab, pos=pl, **gem)
+    # rows of 12, 20 and 4 elements: the kernel loads one element at a time
+    cases["head dims 12 / 20 / rope 4, one element per load"] = dict(
+        b=3, h=4, kv=2, d=12, dv=20, d2=4, psz=4, n_pages=10, table=t3,
+        pos=[7, 2, 10], window=9)
+    tab, n = _slot_table(rng, [255, 100], 16, 16)
+    cases["MLA 128 heads, rope, D 512 + 64"] = dict(
+        b=2, h=128, kv=1, d=512, dv=512, d2=64, psz=16, n_pages=n,
+        table=tab, pos=[255, 100])
     gemma = [1031, 700, 333, 16]
     tab, n = _slot_table(rng, gemma, 16, 65)
     cases["gemma-2b decode shape"] = dict(b=4, h=8, kv=1, d=256, psz=16,
@@ -570,8 +761,10 @@ def paged_kernel_phase(dev) -> float:
     for label, kw in cases.items():
         case = paged_case(rng, dev, **kw)
         for pool_dt, q_dt in ((f32, f32), (bf16, bf16), (bf16, f32)):
-            err = compare_paged(f"{label} [pools {pool_dt}, q {q_dt}]",
-                                _cast(case, pool_dt, q_dt))
+            err = compare_paged(
+                f"{label} [pools {pool_dt}, q {q_dt}]",
+                _cast(case, pool_dt, q_dt),
+                exact=label in EXACT_CASES and pool_dt == q_dt == f32)
             n_cmp += 1
             worst[pool_dt] = max(worst[pool_dt], (err, label))
             if label.startswith("gemma"):
@@ -646,12 +839,13 @@ def serve_lm(cfg, params, use_kernel: bool, observe: bool = False):
     tr = obs_trace.disable() if observe else None
     reg = obs_metrics.disable() if observe else None
     steps = res.stats["decode_steps"]
-    want = cfg.n_layers * steps if use_kernel else 0
+    per_call = paged_attn.KERNELS_PER_CALL
+    want = per_call * cfg.n_layers * steps if use_kernel else 0
     if launches != want:
         raise AssertionError(
             f"{cfg.dtype} use_kernel={use_kernel}: paged_attn launched "
-            f"{launches} times, expected {want} ({cfg.n_layers} layers x "
-            f"{steps} decode steps)")
+            f"{launches} kernels, expected {want} ({per_call} kernels x "
+            f"{cfg.n_layers} layers x {steps} decode steps)")
     for r in reqs:
         toks = res.tokens.get(r.rid)
         if toks is None or len(toks) != MAX_NEW \
@@ -843,13 +1037,17 @@ def decode_profile(lm, n=5) -> None:
     kernels = [ev for ev in prof.key_averages()
                if ev.device_type == torch.autograd.DeviceType.CUDA]
     busy_us = sum(ev.self_device_time_total for ev in kernels) / n
+    b2 = sum(ev.count for ev in kernels
+             if any(nm in ev.key for nm in B2_NAMES)) / n
     print(f"decode-step profile (bf16, kernel path, {n} steps at the first "
           f"step's positions, torch.profiler): wall {wall_us:.1f} us/step "
           f"profiled, {plain_us:.1f} us/step unprofiled; device busy "
           f"{busy_us:.1f} us/step ({100 * busy_us / wall_us:.1f}% of the "
           f"profiled wall, {100 * busy_us / plain_us:.1f}% of the "
           f"unprofiled), {sum(ev.count for ev in kernels) / n:.0f} "
-          f"kernels/step")
+          f"kernels/step ({FIRST_DESIGN_KERNELS_PER_STEP} with the one-launch "
+          f"paged-attention kernel of the first design), {b2:.0f} of them "
+          f"paged-attention kernels")
     for ev in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
         print(f"  {ev.self_device_time_total / n:8.1f} us/step "
               f"{ev.count // n:4d}x  {ev.key[:90]}")
@@ -901,7 +1099,26 @@ def paged_timing_phase(lm, dev) -> dict:
     plain_ms = median_ms(plain_version)
     library_ms = median_ms(library)
     gather_ms = median_ms(gather)
-    dev_ms = device_kernel_ms(kernel, "paged_attn_kernel")
+    dev_ms, each = device_kernel_ms(kernel, B2_NAMES)
+    library_dev_ms, _ = device_kernel_ms(library, None)
+    kernel_graph_ms, library_graph_ms = graph_ms(kernel), graph_ms(library)
+    gather_sdpa_graph_ms = graph_ms(lambda: F.scaled_dot_product_attention(
+        qs, *gather(), attn_mask=mask, scale=scale, enable_gqa=True))
+    hpc, ps, splits = paged_attn.plan(b, h // kv, kv, d, 0, psz, max_pages,
+                                      paged_attn.sm_count(dev.index))
+    planned = (splits, kv * (h // kv // hpc), b)
+    traced = traced_kernels(kernel, B2_NAMES, calls=3)
+    per_call = len(traced) / 3
+    if per_call != paged_attn.KERNELS_PER_CALL:
+        raise AssertionError(f"a call launched {per_call} kernels, the "
+                             f"launch count adds "
+                             f"{paged_attn.KERNELS_PER_CALL}: {traced}")
+    grids = sorted({g for _, g in traced}, key=str)
+    ctas = None
+    if None not in grids:
+        if grids != [planned]:
+            raise AssertionError(f"traced grids {grids}, planned {planned}")
+        ctas = math.prod(planned)
     live = int((pos_h + 1).sum())
     kv_bytes = live * kv * 2 * d * BF16_BYTES
     io_bytes = (q.numel() * BF16_BYTES + b * h * d * 4 + table.numel() * 4
@@ -915,16 +1132,30 @@ def paged_timing_phase(lm, dev) -> dict:
           f"keys; median of 50, CUDA events): kernel {ms:.4f} ms (device "
           f"time {'not measured' if dev_ms is None else f'{dev_ms:.4f} ms'}"
           f" from torch.profiler), plain {plain_ms:.4f} ms, library SDPA "
-          f"{library_ms:.4f} ms on pre-gathered K/V (the gather alone "
+          f"{library_ms:.4f} ms (device time {_ms(library_dev_ms)}) on "
+          f"pre-gathered K/V (the gather alone "
           f"{gather_ms:.4f} ms; SDPA vs kernel max abs diff "
-          f"{lib_err:.3e}), bound {bound_ms:.5f} ms ({kv_bytes} live K/V "
+          f"{lib_err:.3e}); replayed from a CUDA graph (no host): kernel "
+          f"{kernel_graph_ms:.4f} ms, SDPA {library_graph_ms:.4f} ms, gather "
+          f"+ SDPA {gather_sdpa_graph_ms:.4f} ms; bound {bound_ms:.5f} ms "
+          f"({kv_bytes} live K/V "
           f"bytes + {io_bytes} q/out/table/pos bytes; {flops} flops); "
-          f"{cfg.n_layers} launches per decode step")
+          f"planned grid {splits} splits of {ps} pages x {planned[1]} "
+          f"(group, head chunk) x {b} slots; traced: {per_call:g} kernels per "
+          f"call, grids {grids} = "
+          f"{'not in the trace' if ctas is None else f'{ctas} CTAs'}; "
+          f"{cfg.n_layers} calls = {per_call * cfg.n_layers:g} kernels per "
+          f"decode step")
+    for key, t_ms in each.items():
+        print(f"  device time {t_ms:.4f} ms  {key[:90]}")
     return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
             "bound_ms": bound_ms,
             "bound_by": "bytes" if bytes_s >= ops_s else "operations",
-            "device_ms": dev_ms, "gather_ms": gather_ms,
-            "live_kv_bytes": kv_bytes}
+            "device_ms": dev_ms, "library_device_ms": library_dev_ms,
+            "graph_ms": kernel_graph_ms, "library_graph_ms": library_graph_ms,
+            "gather_sdpa_graph_ms": gather_sdpa_graph_ms,
+            "gather_ms": gather_ms, "live_kv_bytes": kv_bytes, "ctas": ctas,
+            "kernels_per_call": per_call}
 
 
 def main() -> int:
@@ -963,6 +1194,8 @@ def main() -> int:
         "ms": tm["ms"], "plain_ms": tm["plain_ms"],
         "bound_ms": tm["bound_ms"], "bound_by": tm["bound_by"],
         "library_ms": tm["library_ms"], "device_ms": tm["device_ms"],
+        "library_device_ms": tm["library_device_ms"],
+        "graph_ms": tm["graph_ms"], "library_graph_ms": tm["library_graph_ms"],
         "us_per_frame": sl["us_per_frame"], "frame_p99_us": sl["p99_us"],
     }, {
         **PAGED_KERNEL, "launches": lm["launches"],
@@ -970,6 +1203,10 @@ def main() -> int:
         "plain_ms": pt["plain_ms"], "bound_ms": pt["bound_ms"],
         "bound_by": pt["bound_by"], "library_ms": pt["library_ms"],
         "device_ms": pt["device_ms"], "gather_ms": pt["gather_ms"],
+        "library_device_ms": pt["library_device_ms"],
+        "graph_ms": pt["graph_ms"], "library_graph_ms": pt["library_graph_ms"],
+        "gather_sdpa_graph_ms": pt["gather_sdpa_graph_ms"],
+        "kernels_per_call": pt["kernels_per_call"], "ctas": pt["ctas"],
         "steady_tokens_per_sec": lm["steady_tokens_per_sec"],
         "step_p99_us": lm["step_p99_us"],
     }]}))

@@ -6,8 +6,10 @@ It replaces the JAX package's Pallas kernel
 already padded to the block grid; its plain version with the same
 arguments is ``ref.csb_mvm_ref``. ``csb_mvm_cuda`` launches the kernel on
 PyTorch's current stream or raises: it never falls back to the plain
-version. ``LAUNCHES`` counts its launches, so that a run can show that
-its main path went through the kernel.
+version. ``LAUNCHES`` counts its launches (one per call), so that a run
+can show that its main path went through the kernel. ``launch_config``
+is the kernel's launch configuration, computed on the host; the design
+is described in the source.
 """
 from __future__ import annotations
 
@@ -20,7 +22,29 @@ from ._build import load_library
 LAUNCHES = 0
 
 _FLOATS = (torch.float32, torch.bfloat16)
+_SMEM_MAX = 232448
 _fn = None
+
+
+def launch_config(bc: int, bm: int, pm: int, pn: int, batch_tile: int,
+                  rows: int) -> tuple[int, int, int, int]:
+    """(threads, lanes per block, block-columns per pass, shared bytes) of
+    one CTA, for a block-row of ``bc`` blocks of ``bm`` output rows and
+    (at most) ``pm`` x ``pn`` live values, and a batch tile of
+    ``batch_tile`` rows of which ``rows`` (at most) are true.
+
+    A group of lanes (the power of two >= Pm, at most 32) takes one
+    (block-column, batch row) item; the CTA has a warp for every item of a
+    pass, up to 32 warps, and never fewer threads than the tile's outputs.
+    Shared memory holds one fp32 sum per (true row, block-column of the
+    pass, output row) and each lane group's ``pn`` gathered inputs."""
+    tr = min(batch_tile, rows)
+    gs = min(32, 1 << max(pm - 1, 0).bit_length())
+    xs = 4 * 1024 // gs * pn          # the gathered x at 1024 threads
+    chunk = max(1, min(bc, (_SMEM_MAX - xs) // (4 * tr * bm)))
+    warps = -(-chunk * tr // (32 // gs))
+    threads = 32 * min(32, max(warps, -(-batch_tile * bm // 32)))
+    return threads, gs, chunk, 4 * (tr * chunk * bm + threads // gs * pn)
 
 
 def _launcher():
@@ -28,7 +52,7 @@ def _launcher():
     if _fn is None:
         lib = load_library("csb_mvm")
         fn = lib.csb_mvm_launch
-        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 12
+        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 15
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         lib.csb_mvm_error_string.argtypes = [ctypes.c_int]
@@ -38,13 +62,18 @@ def _launcher():
 
 
 def csb_mvm_cuda(vals, row_idx, col_idx, m, n, x, *, grid, block,
-                 batch_tile: int, group: int) -> torch.Tensor:
+                 batch_tile: int, group: int,
+                 rows: int | None = None) -> torch.Tensor:
     """(B, Bc*bn) x on the card -> (B, Br*bm) fp32, through the kernel.
 
     ``vals`` (NB, Pm, Pn) and ``x`` are fp32 or bf16; ``row_idx``
     (NB, Pm), ``col_idx`` (NB, Pn), ``m`` and ``n`` (NB,) int32. One CTA
-    covers ``batch_tile`` rows of one block-row and stages ``group``
-    blocks per pass; ``B % batch_tile == 0`` and ``Bc % group == 0``.
+    covers ``batch_tile`` rows of one block-row; ``B % batch_tile == 0``.
+    ``group`` must divide ``Bc``, as in the JAX kernel, where it is the
+    number of blocks per grid step; this kernel loads every block of a
+    block-row at once and does not use it. ``rows`` (default ``B``) says
+    that only the first ``rows`` rows of ``x`` are data and the rest pad
+    (zeros): their outputs are written as zeros without being computed.
     """
     global LAUNCHES
     br, bc = grid
@@ -83,11 +112,15 @@ def csb_mvm_cuda(vals, row_idx, col_idx, m, n, x, *, grid, block,
     if batch_tile * bm > 1024:
         raise ValueError(
             f"batch_tile * bm = {batch_tile * bm} threads exceeds 1024")
+    rows = b if rows is None else rows
+    if not 1 <= rows <= b:
+        raise ValueError(f"rows {rows} must lie in 1..{b}")
+    threads, gs, chunk, _ = launch_config(bc, bm, pm, pn, batch_tile, rows)
     fn, err_str = _launcher()
     out = torch.empty((b, br * bm), dtype=torch.float32, device=dev)
     err = fn(vals.data_ptr(), row_idx.data_ptr(), col_idx.data_ptr(),
              m.data_ptr(), n.data_ptr(), x.data_ptr(), out.data_ptr(),
-             b, br, bc, bm, bn, pm, pn, batch_tile, group,
+             b, rows, br, bc, bm, bn, pm, pn, batch_tile, threads, gs, chunk,
              int(vals.dtype == torch.bfloat16), int(x.dtype == torch.bfloat16),
              dev.index, torch.cuda.current_stream(dev).cuda_stream)
     if err:

@@ -12,23 +12,36 @@
 // live values plus the m + n indices of every block, x and y. A naive
 // kernel reads the padded Pm*Pn of every block instead: for the paper's
 // SR1 model at 13x pruning that is about seven times the live bytes
-// (24.0 MB against 3.6 MB per frame, as chip_smoke.py counts them).
+// (24.0 MB against 3.6 MB per frame, as chip_smoke.py counts them). At
+// these sizes the time is set by the chain of dependent loads each block
+// needs (m and n, then vals, col_idx and row_idx, then the gathered x),
+// so the design puts every block of a block-row in flight at once.
 //
 // The design:
-//   * Only live lanes are read: a block's staging loop runs over its
-//     m*n values and n columns, never over the pad.
+//   * One CTA per (block-row, batch tile). Its warps are cut into groups
+//     of `gs` lanes (a power of two >= Pm, at most 32), one group per
+//     (block-column, batch row) item, so all blocks of the block-row load
+//     their indices, live values and gathered x concurrently. A block costs
+//     two dependent rounds of loads: m, n and col_idx; then the inputs
+//     x[col_idx] (gathered into shared memory), the first 16 live values
+//     of each lane's row and its row_idx. Then lane k
+//     computes kernel row k's dot product over the block's n live
+//     columns (fma in column order) and stores it at the block's output
+//     row row_idx[k] in a shared-memory table part[t][j][r], which the
+//     group zeroes first (rows the block does not reach stay 0).
 //   * The TPU kernel turned the gather by col_idx and the scatter by
 //     row_idx into one-hot matmuls, because VMEM has no cheap random
-//     access. Shared memory has, so here the gather is an indexed load
-//     of x and the scatter an inverse row map in shared memory.
-//   * One CTA per (block-row, batch tile); the TPU's sequential grid
-//     axis over block-columns is a loop inside the CTA. Each thread owns
-//     one output element (t, r) and keeps its sum in a register across
-//     the loop, so no atomics are needed, the summation order is fixed
-//     (blocks left to right, lanes in order) and y is stored once.
-//   * `group` blocks are staged per pass between barriers.
-// Making it fast (filling 132 SMs at batch 1, skipping the idle threads
-// of dead rows, TMA/wgmma, fusing a cell's MVMs) is later work.
+//     access. Here the gather is an indexed load of x and the scatter an
+//     indexed store to shared memory.
+//   * After one barrier, thread (t, r) adds part[t][j][r] over j from left
+//     to right: the same order as a serial walk of the block-columns
+//     (lanes in order within a block, blocks left to right), with no
+//     atomics. Block-rows wider than shared memory holds are cut into
+//     chunks of block-columns, two barriers per chunk, never per block.
+//   * Only the true batch rows are computed; the pad rows of the tile are
+//     written as zeros, which is what they are.
+// Making it faster still (splitting a block-row over CTAs, fusing a cell's
+// MVMs into one launch) is later work.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -36,86 +49,97 @@
 
 namespace {
 
+constexpr int kPre = 16;  // live values of a lane's first row loaded with the gather
+
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
 
-// Shared memory of one pass, for G = group staged blocks:
-//   kv  [G][Pm][Pn + 1] float  live kernel values (row stride padded by one
-//                              so that threads reading different rows of
-//                              the same lane hit different banks)
-//   xg  [G][TB][Pn]     float  x gathered by col_idx
-//   inv [G][bm]         int    output row r -> kernel row k, or -1
-size_t smem_bytes(int pm, int pn, int bm, int tb, int group) {
-  return sizeof(float) * ((size_t)group * pm * (pn + 1) + (size_t)group * tb * pn) +
-         sizeof(int) * (size_t)group * bm;
+// part[tr][chunk][bm] floats: per true batch row, block-column of the
+// chunk and output row of the block-row, that block's dot product; then
+// xs[threads / gs][pn] floats: each lane group's gathered x.
+size_t smem_bytes(int bm, int pn, int tr, int chunk, int threads, int gs) {
+  return sizeof(float) * ((size_t)tr * chunk * bm + (size_t)(threads / gs) * pn);
 }
 
 template <typename TV, typename TX>
-__global__ void csb_mvm_kernel(const TV* __restrict__ vals, const int* __restrict__ row_idx,
-                               const int* __restrict__ col_idx, const int* __restrict__ m,
-                               const int* __restrict__ n, const TX* __restrict__ x,
-                               float* __restrict__ out, int bc, int bm, int bn, int pm, int pn,
-                               int tb, int group) {
-  extern __shared__ float smem[];
-  const int ks = pn + 1;
-  float* kv = smem;
-  float* xg = kv + (size_t)group * pm * ks;
-  int* inv = reinterpret_cast<int*>(xg + (size_t)group * tb * pn);
-
+__global__ void __launch_bounds__(1024)
+    csb_mvm_kernel(const TV* __restrict__ vals, const int* __restrict__ row_idx,
+                   const int* __restrict__ col_idx, const int* __restrict__ m,
+                   const int* __restrict__ n, const TX* __restrict__ x, float* __restrict__ out,
+                   int rows, int bc, int bm, int bn, int pm, int pn, int tb, int tr, int gs,
+                   int chunk) {
+  extern __shared__ float part[];
+  float* xs = part + (size_t)tr * chunk * bm + (size_t)(threadIdx.x / gs) * pn;  // this group's x
   const int i = blockIdx.x;        // block-row
   const int t0 = blockIdx.y * tb;  // first batch row of the tile
+  const int nt = max(0, min(tb, rows - t0));  // true rows of the tile (<= tr)
   const size_t ldx = (size_t)bc * bn;
   const size_t ldo = (size_t)gridDim.x * bm;
-  const int tid = threadIdx.x;
-  const int nthreads = blockDim.x;  // == tb * bm
-  const int t = tid / bm;           // this thread's output: batch row t0 + t,
-  const int r = tid % bm;           //   column i * bm + r
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int nwarps = blockDim.x >> 5;
+  const int per_warp = 32 / gs, sub = lane / gs, k0 = lane % gs;
+  const int t_out = tid / bm, r_out = tid % bm;  // this thread's output
   float acc = 0.f;
 
-  for (int j0 = 0; j0 < bc; j0 += group) {
-    __syncthreads();  // the previous pass has finished reading kv, xg, inv
-    for (int g = 0; g < group; ++g) {
-      const size_t b = (size_t)i * bc + j0 + g;
-      const int mb = m[b], nb = n[b];
-      for (int e = tid; e < bm; e += nthreads) inv[g * bm + e] = -1;
-      for (int e = tid; e < mb * nb; e += nthreads) {
-        const int k = e / nb, l = e % nb;
-        kv[((size_t)g * pm + k) * ks + l] = to_f32(vals[(b * pm + k) * pn + l]);
+  for (int j0 = 0; j0 < bc; j0 += chunk) {
+    const int cn = min(chunk, bc - j0);
+    const int items = cn * nt;
+    if (j0 > 0) __syncthreads();  // the previous chunk's sums have been read
+    // The loop bounds are the same on every lane of a warp (__syncwarp).
+    for (int base = warp * per_warp; base < items; base += nwarps * per_warp) {
+      const int it = base + sub;
+      const bool ok = it < items;
+      const int t = ok ? it / cn : 0, jj = ok ? it % cn : 0;
+      float* pr = part + ((size_t)t * chunk + jj) * bm;
+      if (ok)
+        for (int e = k0; e < bm; e += gs) pr[e] = 0.f;
+      __syncwarp();
+      // Two dependent rounds of loads per block: m, n and col_idx; then x
+      // at col_idx, the first kPre live values of row k0 and its row_idx.
+      const size_t b = (size_t)i * bc + j0 + jj;
+      const int mb = ok ? m[b] : 0, nb = ok ? n[b] : 0;
+      const TX* xr = x + (t0 + t) * ldx + (size_t)(j0 + jj) * bn;
+#pragma unroll 4
+      for (int l = k0; l < pn; l += gs) {
+        const int c = ok ? col_idx[b * pn + l] : 0;
+        if (l < nb) xs[l] = to_f32(xr[c]);
       }
-      for (int e = tid; e < tb * nb; e += nthreads) {
-        const int tt = e / nb, l = e % nb;
-        xg[((size_t)g * tb + tt) * pn + l] =
-            to_f32(x[(t0 + tt) * ldx + (size_t)(j0 + g) * bn + col_idx[b * pn + l]]);
-      }
-    }
-    __syncthreads();
-    // Within one block the live row_idx are distinct, so each output row
-    // has at most one kernel row.
-    for (int g = 0; g < group; ++g) {
-      const size_t b = (size_t)i * bc + j0 + g;
-      for (int k = tid; k < m[b]; k += nthreads) inv[g * bm + row_idx[b * pm + k]] = k;
-    }
-    __syncthreads();
-    for (int g = 0; g < group; ++g) {
-      const int k = inv[g * bm + r];
-      if (k >= 0) {
-        const int nb = n[(size_t)i * bc + j0 + g];
-        const float* kr = kv + ((size_t)g * pm + k) * ks;
-        const float* xr = xg + ((size_t)g * tb + t) * pn;
+      const TV* vr0 = vals + (b * pm + k0) * pn;
+      float v[kPre];
+#pragma unroll
+      for (int u = 0; u < kPre; ++u) v[u] = (k0 < mb && u < nb) ? to_f32(vr0[u]) : 0.f;
+      const int r0 = k0 < mb ? row_idx[b * pm + k0] : 0;
+      __syncwarp();
+      for (int k = k0; k < mb; k += gs) {
+        const TV* vr = vals + (b * pm + k) * pn;
         float s = 0.f;
-        for (int l = 0; l < nb; ++l) s = fmaf(kr[l], xr[l], s);
-        acc += s;
+        int l = 0;
+        if (k == k0) {
+#pragma unroll
+          for (int u = 0; u < kPre; ++u)
+            if (u < nb) s = fmaf(v[u], xs[u], s);
+          l = kPre;
+        }
+#pragma unroll 8
+        for (; l < nb; ++l) s = fmaf(to_f32(vr[l]), xs[l], s);
+        pr[k == k0 ? r0 : row_idx[b * pm + k]] = s;
       }
+      __syncwarp();
     }
+    __syncthreads();
+    if (t_out < nt)
+      for (int jj = 0; jj < cn; ++jj) acc += part[((size_t)t_out * chunk + jj) * bm + r_out];
   }
-  out[(t0 + t) * ldo + (size_t)i * bm + r] = acc;
+  if (t_out < tb) out[(t0 + t_out) * ldo + (size_t)i * bm + r_out] = t_out < nt ? acc : 0.f;
 }
 
 template <typename TV, typename TX>
 cudaError_t launch(const void* vals, const void* row_idx, const void* col_idx, const void* m,
-                   const void* n, const void* x, void* out, int batch, int br, int bc, int bm,
-                   int bn, int pm, int pn, int tb, int group, cudaStream_t stream) {
-  const size_t smem = smem_bytes(pm, pn, bm, tb, group);
+                   const void* n, const void* x, void* out, int batch, int rows, int br, int bc,
+                   int bm, int bn, int pm, int pn, int tb, int threads, int gs, int chunk,
+                   cudaStream_t stream) {
+  const int tr = min(tb, rows);
+  const size_t smem = smem_bytes(bm, pn, tr, chunk, threads, gs);
   auto kernel = csb_mvm_kernel<TV, TX>;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -123,11 +147,11 @@ cudaError_t launch(const void* vals, const void* row_idx, const void* col_idx, c
     if (e != cudaSuccess) return e;
   }
   dim3 grid(br, batch / tb);
-  kernel<<<grid, tb * bm, smem, stream>>>(
+  kernel<<<grid, threads, smem, stream>>>(
       static_cast<const TV*>(vals), static_cast<const int*>(row_idx),
       static_cast<const int*>(col_idx), static_cast<const int*>(m),
-      static_cast<const int*>(n), static_cast<const TX*>(x), static_cast<float*>(out), bc, bm,
-      bn, pm, pn, tb, group);
+      static_cast<const int*>(n), static_cast<const TX*>(x), static_cast<float*>(out), rows, bc,
+      bm, bn, pm, pn, tb, tr, gs, chunk);
   return cudaGetLastError();
 }
 
@@ -135,27 +159,33 @@ cudaError_t launch(const void* vals, const void* row_idx, const void* col_idx, c
 
 // Launches on `stream` without synchronising; returns the cudaError_t of
 // the launch. vals and x are fp32 (0) or bf16 (1) as the flags say; the
-// indices are int32; out is (batch, br * bm) fp32. The caller guarantees
-// batch % tb == 0, bc % group == 0 and tb * bm <= 1024.
+// indices are int32; out is (batch, br * bm) fp32, of which the first
+// `rows` rows are computed and the rest written as zeros. The caller
+// (kernels/csb_mvm.py::launch_config) guarantees batch % tb == 0,
+// 1 <= rows <= batch, tb * bm <= threads <= 1024 with threads a multiple of
+// 32, gs a power of two <= 32, and smem_bytes(bm, pn, min(tb, rows),
+// chunk, threads, gs) within 232448.
 extern "C" int csb_mvm_launch(const void* vals, const void* row_idx, const void* col_idx,
                               const void* m, const void* n, const void* x, void* out, int batch,
-                              int br, int bc, int bm, int bn, int pm, int pn, int tb, int group,
-                              int vals_bf16, int x_bf16, int device, void* stream) {
+                              int rows, int br, int bc, int bm, int bn, int pm, int pn, int tb,
+                              int threads, int gs, int chunk, int vals_bf16, int x_bf16,
+                              int device, void* stream) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return e;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (vals_bf16) {
     if (x_bf16)
-      return launch<__nv_bfloat16, __nv_bfloat16>(vals, row_idx, col_idx, m, n, x, out, batch, br,
-                                                  bc, bm, bn, pm, pn, tb, group, s);
-    return launch<__nv_bfloat16, float>(vals, row_idx, col_idx, m, n, x, out, batch, br, bc, bm,
-                                        bn, pm, pn, tb, group, s);
+      return launch<__nv_bfloat16, __nv_bfloat16>(vals, row_idx, col_idx, m, n, x, out, batch,
+                                                  rows, br, bc, bm, bn, pm, pn, tb, threads, gs,
+                                                  chunk, s);
+    return launch<__nv_bfloat16, float>(vals, row_idx, col_idx, m, n, x, out, batch, rows, br,
+                                        bc, bm, bn, pm, pn, tb, threads, gs, chunk, s);
   }
   if (x_bf16)
-    return launch<float, __nv_bfloat16>(vals, row_idx, col_idx, m, n, x, out, batch, br, bc, bm,
-                                        bn, pm, pn, tb, group, s);
-  return launch<float, float>(vals, row_idx, col_idx, m, n, x, out, batch, br, bc, bm, bn, pm, pn,
-                              tb, group, s);
+    return launch<float, __nv_bfloat16>(vals, row_idx, col_idx, m, n, x, out, batch, rows, br,
+                                        bc, bm, bn, pm, pn, tb, threads, gs, chunk, s);
+  return launch<float, float>(vals, row_idx, col_idx, m, n, x, out, batch, rows, br, bc, bm, bn,
+                              pm, pn, tb, threads, gs, chunk, s);
 }
 
 extern "C" const char* csb_mvm_error_string(int code) {

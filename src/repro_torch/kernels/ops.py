@@ -43,8 +43,10 @@ def csb_matvec(p: PaddedCSB, x: torch.Tensor, *, batch_tile: int = 8,
     """y = x @ W^T for CSB W;  x: (..., in_dim) -> (..., out_dim) fp32.
 
     ``device=None`` means the card; ``x`` and ``p`` must lie on the device
-    the call runs on. ``group`` (default 1) must divide ``Bc``: on the
-    card it sets how many blocks the kernel stages per pass."""
+    the call runs on. ``group`` (default 1) must divide ``Bc``, as in the
+    JAX package; the card's kernel loads every block of a block-row at
+    once and does not use it. On the card only the true batch rows are
+    computed; the pad rows of the last tile are written as zeros."""
     dev = resolve_device(device)
     for name, t in (("x", x), ("p.vals", p.vals)):
         if t.device != dev:
@@ -61,7 +63,8 @@ def csb_matvec(p: PaddedCSB, x: torch.Tensor, *, batch_tile: int = 8,
     arrays = (p.vals, p.row_idx, p.col_idx, p.m, p.n, xp)
     if dev.type == "cuda":
         y = csb_mvm_cuda(*arrays, grid=p.grid, block=p.block,
-                         batch_tile=batch_tile, group=group)
+                         batch_tile=batch_tile, group=group,
+                         rows=max(x2.shape[0], 1))
     else:
         y = csb_mvm_ref(*arrays, grid=p.grid, block=p.block)
     return y[: x2.shape[0], : p.shape[0]].reshape(*batch_shape, p.shape[0])

@@ -9,53 +9,107 @@ window and an optional rope score term (multi-head latent attention).
 Its plain version with the same arguments and contract is
 ``ref.paged_attn_ref``. ``paged_attn_cuda`` launches the kernel on
 PyTorch's current stream or raises: it never falls back to the plain
-version. ``LAUNCHES`` counts its launches, so that a run can show that
-its main path went through the kernel.
+version. Each call launches two kernels, the scores kernel and the PV
+kernel (``KERNELS_PER_CALL``), and adds both to ``LAUNCHES``, so that a
+run can show that its main path went through them. Their design is
+described in the source.
+
+The PV kernels of a call find their last CTA through int32 counters that
+the last CTA resets. They are kept per (device, stream), so calls on one
+stream run in order; a call whose launch fails drops them. The workspace
+is taken from PyTorch's caching allocator on every call, in stream order.
+A CUDA graph of these calls bakes in the counters of the stream it was
+captured on: replay it on that stream, not beside other calls there.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from ._build import load_library
 
 LAUNCHES = 0
+KERNELS_PER_CALL = 2
 
 _FLOATS = (torch.float32, torch.bfloat16)
-# kept in step with smem_bytes() and the constants in csrc/paged_attn.cu
-_WARPS = 8
+# kept in step with csrc/paged_attn.cu
 _SMEM_MAX = 232448
 _fn = None
+_COUNT: dict = {}          # (device, stream) -> zeroed int32 counters
 
 
-def smem_bytes(hpc: int, d: int, d2: int, tile: int, mp: int) -> int:
-    """Shared memory of one CTA: q and q2 of ``hpc`` heads, a score tile
-    of ``tile`` keys per head, reduction buffers and the table row."""
-    return 4 * (hpc * (d + d2 + tile) + _WARPS * hpc + 2 * hpc + mp)
+def smem_bytes(hpc: int, d: int, d2: int, keys: int, pages: int,
+               splits: int) -> int:
+    """Shared memory of one CTA, the larger of the two kernels': the
+    scores kernel holds q and q2 of ``hpc`` heads (rows padded to a
+    multiple of 64 floats for 16-byte loads), the split's scores and its
+    pages; the PV kernel the offsets of the split's V rows (8 bytes each),
+    its probabilities, a max and a sum per head, every split's max and
+    sum per head, and a flag."""
+    def r64(x):
+        return -(-x // 64) * 64
+    scores = 4 * (hpc * (r64(d) + r64(d2) + keys) + pages)
+    pv = 8 * keys + 4 * (hpc * keys + 2 * hpc + 2 * splits * hpc + 1)
+    return max(scores, pv)
 
 
-def plan(rep: int, d: int, d2: int, t: int, mp: int,
-         window: int | None) -> tuple[int, int]:
-    """(heads per CTA, score tile) for a group of ``rep`` heads over at
-    most ``t`` keys. The scores of every live key are kept in shared
-    memory where they fit, the whole group in one CTA if possible,
-    halving the heads per CTA while they do not; past that, a tile of
-    keys that the kernel rescores in its second pass."""
-    n_max = t if window is None else min(t, window)
+@functools.lru_cache(maxsize=256)
+def plan(b: int, rep: int, kv: int, d: int, d2: int, psz: int, mp: int,
+         sms: int) -> tuple[int, int, int]:
+    """(heads per CTA, pages per split, splits) for ``b`` slots of ``kv``
+    groups of ``rep`` heads over a table of ``mp`` pages of ``psz`` keys,
+    on a card of ``sms`` streaming multiprocessors.
+
+    The heads of a group share a CTA, halved while a split of one page
+    does not fit in shared memory. The split is the largest whole number
+    of pages that still gives a grid of at least ``sms`` CTAs (every split
+    a page if even that falls short), halved while shared memory does not
+    hold it. Nothing here depends on the positions, so the grid is the
+    same at every decode step."""
     hpc = rep
-    while True:
-        if smem_bytes(hpc, d, d2, n_max, mp) <= _SMEM_MAX:
-            return hpc, n_max
+    while smem_bytes(hpc, d, d2, psz, 1, mp) > _SMEM_MAX:
         if hpc % 2:
-            break
+            raise ValueError(
+                f"paged attention with head dims {d}+{d2} and {hpc} heads "
+                f"per CTA does not fit in shared memory")
         hpc //= 2
-    tile = (_SMEM_MAX - smem_bytes(hpc, d, d2, 0, mp)) // (4 * hpc)
-    if tile < 1:
-        raise ValueError(
-            f"paged attention with head dims {d}+{d2} and {hpc} heads per "
-            f"CTA does not fit in shared memory")
-    return hpc, min(tile, n_max)
+    groups = b * kv * (rep // hpc)
+    need = -(-sms // groups)
+    # largest ps with ceil(mp / ps) >= need
+    ps = mp if need <= 1 else (mp + need - 2) // (need - 1) - 1
+    ps = max(1, min(ps, mp))
+    while smem_bytes(hpc, d, d2, ps * psz, ps, -(-mp // ps)) > _SMEM_MAX:
+        ps //= 2
+    return hpc, ps, -(-mp // ps)
+
+
+@functools.lru_cache(maxsize=16)
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA device ``index``."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _counters(key, n: int) -> torch.Tensor:
+    """At least ``n`` zeroed int32 counters for ``key`` = (device,
+    stream), allocated once and replaced when a call needs more; the last
+    CTA of each (slot, group) leaves its counter at 0."""
+    count = _COUNT.get(key)
+    if count is None or count.numel() < n:
+        count = _COUNT[key] = torch.zeros(n, dtype=torch.int32,
+                                          device=key[0])
+    return count
+
+
+def workspace_floats(b: int, h: int, dv: int, psz: int, mp: int,
+                     splits: int) -> tuple[int, int, int]:
+    """fp32 words of the workspace's parts, each a multiple of 4 so that
+    every part stays 16-byte aligned: the scores (b, h, mp * psz), the
+    max and the sum of each split (splits, b, h) and the partial outputs
+    (splits, b, h, dv)."""
+    return (-(-b * h * mp * psz // 4) * 4, -(-splits * b * h // 4) * 4,
+            splits * b * h * dv)
 
 
 def _launcher():
@@ -63,8 +117,8 @@ def _launcher():
     if _fn is None:
         lib = load_library("paged_attn")
         fn = lib.paged_attn_launch
-        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 12
-                       + [ctypes.c_float] + [ctypes.c_int] * 3
+        fn.argtypes = ([ctypes.c_void_p] * 13 + [ctypes.c_int] * 13
+                       + [ctypes.c_float] + [ctypes.c_int] * 4
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         lib.paged_attn_error_string.argtypes = [ctypes.c_int]
@@ -139,21 +193,39 @@ def paged_attn_cuda(q, k_pool, v_pool, page_table, pos, *, scale: float,
                          f"of the kernel's range")
     if window is not None and window < 1:
         raise ValueError(f"window must be >= 1, got {window}")
-    hpc, tile = plan(h // kv, d, d2, mp * psz, mp, window)
+    rep = h // kv
+    hpc, ps, splits = plan(b, rep, kv, d, d2, psz, mp, sm_count(dev.index))
+    groups = kv * (rep // hpc)
+    if splits > 2 ** 31 - 1 or groups > 65535:
+        raise ValueError(f"{splits} splits x {groups} groups are out of "
+                         f"the kernel's range")
+    vec = (d % 8 == 0 and dv % 8 == 0 and d2 % 8 == 0
+           and all(t.data_ptr() % 16 == 0 for t in (k_pool, v_pool, k2_pool)
+                   if t is not None))
+    n_sc, n_st, n_out = workspace_floats(b, h, dv, psz, mp, splits)
+    work = torch.empty(n_sc + 2 * n_st + n_out, dtype=torch.float32,
+                       device=dev)
+    stream = torch.cuda.current_stream(dev)
+    key = (dev, stream.cuda_stream)
+    count = _counters(key, b * groups)
+    base = work.data_ptr()
     fn, err_str = _launcher()
     out = torch.empty((b, h, dv), dtype=torch.float32, device=dev)
     err = fn(q.data_ptr(), 0 if q2 is None else q2.data_ptr(),
              k_pool.data_ptr(), v_pool.data_ptr(),
              0 if k2_pool is None else k2_pool.data_ptr(),
              page_table.data_ptr(), pos.data_ptr(), out.data_ptr(),
+             base, base + 4 * n_sc, base + 4 * (n_sc + n_st),
+             base + 4 * (n_sc + 2 * n_st), count.data_ptr(),
              b, h, kv, d, dv, d2, psz, mp, int(pos.numel() == b and b > 1),
-             hpc, tile, 0 if window is None else window, float(scale),
-             int(q.dtype == torch.bfloat16),
+             hpc, ps, splits, 0 if window is None else window, float(scale),
+             int(vec), int(q.dtype == torch.bfloat16),
              int(k_pool.dtype == torch.bfloat16),
-             dev.index, torch.cuda.current_stream(dev).cuda_stream)
+             dev.index, stream.cuda_stream)
     if err:
+        _COUNT.pop(key, None)
         raise RuntimeError(
             f"paged_attn kernel launch failed: {err_str(err).decode()} "
             f"(cudaError {err})")
-    LAUNCHES += 1
+    LAUNCHES += KERNELS_PER_CALL
     return out

@@ -14,7 +14,10 @@ kernel returns: the ``(B, H, Dv)`` fp32 single-query attention of every
 slot over its pages, computed as the JAX package's gather path computes
 it (``repro.models.layers.attn_decode_paged``): gather the table's pages,
 scores in fp32, mask with ``-1e30``, ``exp(s - max) / sum``, then the
-probabilities rounded to the pool's type times V in fp32.
+probabilities rounded to the pool's type times V in fp32. Each score's
+dot product is summed exactly and rounded to fp32 once, so that the
+comparison with the kernel measures the kernel, not this version's own
+summation order over wide heads.
 """
 from __future__ import annotations
 
@@ -77,12 +80,17 @@ def paged_attn_ref(q, k_pool, v_pool, page_table, pos, *, scale: float,
     t, kv = kg.shape[1], kg.shape[2]
     rep = h // kv
     f32 = torch.float32
+    f64 = torch.float64
+    # each dot product summed exactly (fp64 holds every fp32 product) and
+    # rounded to fp32 once: an fp32 sum over 512 dims (MLA) already moves
+    # the output by ~1e-6, which would swamp the comparison with the kernel
     qh = q.reshape(b, kv, rep, d).to(kg.dtype)
-    sc = torch.einsum("bgrd,bkgd->bgrk", qh.to(f32), kg.to(f32))
+    sc = torch.einsum("bgrd,bkgd->bgrk", qh.to(f64), kg.to(f64)).to(f32)
     if q2 is not None:
         k2g = gather(k2_pool)
         q2h = q2.reshape(b, kv, rep, -1).to(k2g.dtype)
-        sc = sc + torch.einsum("bgrd,bkgd->bgrk", q2h.to(f32), k2g.to(f32))
+        sc = sc + torch.einsum("bgrd,bkgd->bgrk", q2h.to(f64),
+                               k2g.to(f64)).to(f32)
     row = torch.as_tensor(pos, dtype=torch.int64, device=dev).reshape(-1)
     row = row.expand(b)
     kpos = torch.arange(t, device=dev)

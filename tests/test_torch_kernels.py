@@ -3,7 +3,8 @@ kernel's plain version, which must match the JAX package's Pallas kernel
 (interpret mode, as tests/test_kernels.py runs it) over that file's
 sweep, at its tolerances: 1e-5 in fp32 (summation order only), 5e-2 in
 bf16 (inputs rounded to 8 bits of mantissa). The CUDA kernel itself runs
-only on the card: the last test here, and chip_smoke.py."""
+only on the card: the last test here, and chip_smoke.py; its launch
+configuration is computed on the host and checked here."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -14,7 +15,7 @@ from repro.kernels.ops import csb_matvec as j_matvec
 from repro.kernels.ref import densify as j_densify
 from repro_torch.convert import cell_params_from_numpy
 from repro_torch.kernels import csb_matvec, csb_mvm_ref, densify, pad_to_grid
-from repro_torch.kernels.csb_mvm import csb_mvm_cuda
+from repro_torch.kernels.csb_mvm import csb_mvm_cuda, launch_config
 
 
 def make_pair(seed, shape, bm, bn, rate, dtype=jnp.float32):
@@ -143,6 +144,46 @@ def test_kernel_wrapper_refuses_cpu_tensors():
         csb_mvm_cuda(pt.vals, pt.row_idx, pt.col_idx, pt.m, pt.n,
                      torch.zeros(8, 32), grid=pt.grid, block=pt.block,
                      batch_tile=8, group=1)
+
+
+# (Bc, bm, Pm, Pn, batch_tile, true rows): SR1's three block grids at
+# batch 1, and the card cases of chip_smoke.py (Bc 1, 33 and 128; blocks
+# with m = 0; batches 1, 7, 8 and 17; batch_tile 16; bm 8)
+CONFIGS = [(5, 32, 16, 32, 8, 1), (16, 32, 24, 32, 8, 1),
+           (32, 32, 24, 32, 8, 1), (1, 32, 16, 16, 8, 1),
+           (33, 32, 16, 16, 8, 7), (128, 32, 16, 16, 8, 8),
+           (128, 32, 16, 16, 8, 17), (4, 16, 0, 0, 8, 3),
+           (2, 16, 16, 16, 16, 13), (3, 8, 8, 8, 8, 8),
+           (64, 64, 40, 64, 16, 16)]
+
+
+@pytest.mark.parametrize("bc,bm,pm,pn,tb,rows", CONFIGS)
+def test_launch_config(bc, bm, pm, pn, tb, rows):
+    """A lane group per block as wide as its rows (a power of two, at
+    most a warp); a thread for every output of the tile; at most 1024
+    threads; the shared sums of one pass and the gathered inputs within
+    227 KB; and every (block-column, row) item of a pass has its own lane
+    group when 32 warps allow it."""
+    threads, gs, chunk, smem = launch_config(bc, bm, pm, pn, tb, rows)
+    tr = min(tb, rows)
+    assert threads % 32 == 0 and tb * bm <= threads <= 1024
+    assert gs & (gs - 1) == 0 and min(pm, 32) <= gs <= 32
+    assert 1 <= chunk <= bc
+    assert smem == 4 * (tr * chunk * bm + threads // gs * pn) <= 232448
+    items_per_warp = 32 // gs
+    assert threads // 32 * items_per_warp >= min(chunk * tr,
+                                                 32 * items_per_warp)
+    if chunk < bc:
+        assert 4 * (tr * (chunk + 1) * bm + 1024 // gs * pn) > 232448
+
+
+def test_launch_config_one_pass_at_4096_columns():
+    """A 4096-wide input in 32-column blocks (Bc = 128) at batch tile 8 is
+    one pass over shared memory, a warp for each (block-column, row) pair
+    of a batch of one."""
+    threads, gs, chunk, _ = launch_config(128, 32, 16, 16, 8, 1)
+    assert (threads, gs, chunk) == (1024, 16, 128)
+    assert launch_config(128, 32, 16, 16, 8, 8)[2] == 128
 
 
 @pytest.fixture

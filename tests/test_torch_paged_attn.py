@@ -3,8 +3,10 @@
 package's Pallas kernel ``paged_attn_decode`` in interpret mode, on the
 edge cases of tests/test_paged_attn.py, at that file's 1e-6 bound
 (``test_kernel_*``; fp32 summation order only). The CUDA kernel runs only
-on the card: the last test here, and chip_smoke.py, which also covers the
-long-cache shared-memory plans at full size."""
+on the card: the last test here, and chip_smoke.py, which also covers
+long caches and the boundaries of the key splits at full size. The
+``test_plan_*`` tests check the host's launch plan (heads per CTA, pages
+per split, the grid) at every shape chip_smoke.py launches."""
 import math
 
 import jax.numpy as jnp
@@ -14,7 +16,11 @@ import torch
 
 from repro.kernels import paged_attn_decode as j_paged_attn
 from repro_torch.kernels import paged_attn, paged_attn_decode, paged_attn_ref
-from repro_torch.kernels.paged_attn import paged_attn_cuda, plan, smem_bytes
+from repro_torch.kernels.paged_attn import (
+    KERNELS_PER_CALL, paged_attn_cuda, plan, smem_bytes, workspace_floats,
+)
+
+SMS = 132                  # streaming multiprocessors of an H100 SXM
 
 T3 = [[0, 1, 2], [3, 4, 9], [5, 6, 7]]
 
@@ -116,32 +122,78 @@ def test_dispatch_refuses_a_tensor_on_another_device():
         paged_attn_decode(q, *args[1:], **kw)
 
 
+# (b, rep, kv, d, d2, psz, max_pages) of every call chip_smoke.py makes
+PLANNED = {
+    "gemma-2b-4-slots": (4, 8, 1, 256, 0, 16, 65),
+    "gemma-2b-1-slot": (1, 8, 1, 256, 0, 16, 65),
+    "gemma-2b-16-slots": (16, 8, 1, 256, 0, 16, 65),
+    "gemma-2b-63-pages": (4, 8, 1, 256, 0, 16, 63),
+    "mla-128-heads-rope": (2, 128, 1, 512, 64, 16, 16),
+    "long-8000-keys": (2, 8, 1, 64, 0, 16, 500),
+    "long-64000-keys": (1, 1, 1, 32, 0, 16, 4000),
+    "gqa-rep-3": (3, 3, 2, 16, 0, 4, 3),
+    "rope-16-heads": (3, 16, 1, 16, 8, 4, 3),
+    "max-pages-1": (3, 2, 1, 16, 0, 8, 1),
+    "split-edges": (2, 4, 2, 64, 0, 16, 24),
+}
+
+
 def test_plan_keeps_gemma_scores_in_one_cta():
-    # gemma-2b: rep 8, D 256, the slice's 65 pages of 16
-    hpc, tile = plan(8, 256, 0, 65 * 16, 65, None)
-    assert (hpc, tile) == (8, 1040)
-    assert smem_bytes(8, 256, 0, 1040, 65) == 4 * (
-        8 * (256 + 1040) + 8 * 8 + 2 * 8 + 65)
+    """gemma-2b's 4 slots x 1040 keys: all 8 heads of the group in one
+    CTA, splits of 2 pages (32 keys), 33 x 4 = 132 CTAs: one wave."""
+    hpc, ps, splits = plan(4, 8, 1, 256, 0, 16, 65, SMS)
+    assert (hpc, ps, splits) == (8, 2, 33)
+    assert splits * 4 * 1 * (8 // hpc) == SMS
+    assert smem_bytes(8, 256, 0, 32, 2, 33) == 4 * (8 * (256 + 32) + 2)
 
 
-@pytest.mark.parametrize("rep,d,d2,t,window,want", [
-    (8, 64, 0, 8000, None, (4, 8000)),     # halve the heads per CTA
-    (1, 32, 0, 64000, None, (1, 54070)),   # rescored tiles
-    (1, 32, 0, 64000, 60000, (1, 54070)),  # the window is longer
-    (4, 16, 0, 64, 5, (4, 5)),             # a window bounds the keys
-    (6, 16, 8, 48, None, (6, 48)),
-])
-def test_plan_fits_shared_memory(rep, d, d2, t, window, want):
-    mp = -(-t // 16)
-    hpc, tile = plan(rep, d, d2, t, mp, window)
-    assert (hpc, tile) == want
+@pytest.mark.parametrize("name", list(PLANNED))
+def test_plan_fits_shared_memory(name):
+    """Both kernels' shared memory and the workspace fit at every shape
+    chip_smoke.py launches; the heads of a CTA divide the group."""
+    b, rep, kv, d, d2, psz, mp = PLANNED[name]
+    hpc, ps, splits = plan(b, rep, kv, d, d2, psz, mp, SMS)
     assert rep % hpc == 0
-    assert smem_bytes(hpc, d, d2, tile, mp) <= 232448
+    assert smem_bytes(hpc, d, d2, ps * psz, ps, splits) <= 232448
+    n_sc, n_st, n_out = workspace_floats(b, rep * kv, d, psz, mp, splits)
+    assert all(n % 4 == 0 for n in (n_sc, n_st))
+    assert 4 * (n_sc + 2 * n_st + n_out) < 2 ** 30
+    assert kv * (rep // hpc) <= 65535
+
+
+@pytest.mark.parametrize("name", list(PLANNED))
+def test_plan_splits_cover_every_key_once(name):
+    """Split s owns pages s*ps .. s*ps+ps-1 (the last one fewer): the
+    splits cover keys 0 .. max_pages*P - 1 exactly once, page-aligned."""
+    b, rep, kv, d, d2, psz, mp = PLANNED[name]
+    _, ps, splits = plan(b, rep, kv, d, d2, psz, mp, SMS)
+    seen = np.zeros(mp * psz, int)
+    for s in range(splits):
+        a, z = s * ps * psz, min((s + 1) * ps * psz, mp * psz)
+        assert a % psz == 0 and a < z
+        seen[a:z] += 1
+    assert (seen == 1).all()
+
+
+@pytest.mark.parametrize("sms", [SMS, 114])
+@pytest.mark.parametrize("name", list(PLANNED))
+def test_plan_fills_one_wave(name, sms):
+    """At least one CTA per SM (132 on an H100 SXM, 114 on an H100 PCIe)
+    wherever the table has pages enough (one page per split at most), and
+    no split smaller than it must be: one page more per split would fall
+    short of a wave."""
+    b, rep, kv, d, d2, psz, mp = PLANNED[name]
+    hpc, ps, splits = plan(b, rep, kv, d, d2, psz, mp, sms)
+    groups = b * kv * (rep // hpc)
+    assert splits * groups >= sms or ps == 1
+    if ps < mp and smem_bytes(hpc, d, d2, (ps + 1) * psz, ps + 1,
+                              -(-mp // (ps + 1))) <= 232448:
+        assert -(-mp // (ps + 1)) * groups < sms
 
 
 def test_plan_raises_when_nothing_fits():
     with pytest.raises(ValueError, match="shared memory"):
-        plan(1, 65536, 0, 16, 1, None)
+        plan(1, 1, 1, 65536, 0, 16, 1, SMS)
 
 
 @pytest.fixture
@@ -166,6 +218,6 @@ def test_kernel_matches_plain_on_card(cuda_device, name, dtype, tol):
     before = paged_attn.LAUNCHES
     got = paged_attn_decode(*args, **kw)
     torch.cuda.synchronize()
-    assert paged_attn.LAUNCHES == before + 1
+    assert paged_attn.LAUNCHES == before + KERNELS_PER_CALL
     torch.testing.assert_close(got, paged_attn_ref(*args, **kw), rtol=tol,
                                atol=tol)
