@@ -60,6 +60,25 @@ Phases, each of which raises (and the script exits nonzero) on failure:
    pages) and its bound at the run's busiest decode step, in the same
    three ways; the kernels one call launches and their grids are read
    from the profiler's trace.
+7. The rest of the dense-attention serve path, on the same gemma-2b
+   weights (B2's launch count is read around each path: 2 x n_layers x
+   single-query paged decode steps, and 0 where a path runs none):
+   ``generate`` on four 256-token prompts (numpy seed 1), 32 new tokens,
+   in fp32 and bf16, its fp32 tokens equal to ``serve_continuous(paged=
+   True, use_kernel=True)`` on the same four requests; contiguous
+   ``serve_continuous(paged=False)`` on the LM trace, its fp32 tokens
+   equal to the paged path's; the prefix cache — eight requests sharing
+   one 512-token prefix with distinct suffixes of 16..333 tokens,
+   ``prefix_cache=True`` and ``False`` through the kernel in fp32 and
+   bf16 (fp32 tokens equal, at least 7 prefix hits, shared pages, the
+   prefill tokens of both); ``derive_draft_params``' time at full width;
+   and speculative serving of the LM trace (``spec_k=4``, draft prune
+   rates 0 and 0.5, fp32), its tokens equal to plain paged serving's,
+   with acceptance, tokens per round and wall time per token. Where fp32
+   tokens differ, the first differing step and the top-2 logit margin
+   there are printed before the script fails. B2's kernel phase also
+   holds the kernel on page tables of the prefix trace (replayed on the
+   host) in which several slots map the same physical pages.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Without CUDA the script
@@ -97,8 +116,8 @@ from repro_torch.models import lm as LM  # noqa: E402
 from repro_torch.obs import metrics as obs_metrics  # noqa: E402
 from repro_torch.obs import trace as obs_trace  # noqa: E402
 from repro_torch.serve import (  # noqa: E402
-    EngineConfig, PagePool, Request, bucket_len, rnn_serve_frames,
-    serve_continuous,
+    EngineConfig, PagePool, Request, SlotScheduler, bucket_len,
+    derive_draft_params, generate, rnn_serve_frames, serve_continuous,
 )
 from repro_torch.serve.scheduler import (  # noqa: E402
     fit_cache_len, insert_paged_cache,
@@ -154,6 +173,14 @@ BF16_BYTES = 2
 # one launch per layer (decode-step profile on an H100, PERF.md)
 FIRST_DESIGN_KERNELS_PER_STEP = 1633
 B2_NAMES = ("paged_attn_scores_kernel", "paged_attn_pv_kernel")
+# the rest of the serve path (phase 7)
+GEN_SHAPE = (4, 256)       # generate: four 256-token prompts, numpy seed 1
+PREFIX_LEN = 512
+SUFFIX_LENS = (16, 40, 97, 150, 200, 256, 300, 333)
+PREFIX_ENGINE = LM_ENGINE.replace(use_kernel=True, prefix_cache=True)
+MIN_PREFIX_HITS = 7
+SPEC_K = 4
+DRAFT_RATES = (0.0, 0.5)
 
 
 def card_info() -> str:
@@ -756,6 +783,9 @@ def paged_kernel_phase(dev) -> float:
     tab, n = _slot_table(rng, gemma, 16, 65)
     cases["gemma-2b decode shape"] = dict(b=4, h=8, kv=1, d=256, psz=16,
                                           n_pages=n, table=tab, pos=gemma)
+    table, pos, n, shared = shared_page_snapshot(get_config(ARCH).vocab)
+    cases[f"prefix trace, {shared} pages mapped by several slots"] = dict(
+        b=len(pos), n_pages=n, table=table, pos=pos.tolist(), **gem)
     f32, bf16 = torch.float32, torch.bfloat16
     n_cmp, gemma_err, worst = 0, 0.0, {f32: (0.0, ""), bf16: (0.0, "")}
     for label, kw in cases.items():
@@ -767,16 +797,78 @@ def paged_kernel_phase(dev) -> float:
                 exact=label in EXACT_CASES and pool_dt == q_dt == f32)
             n_cmp += 1
             worst[pool_dt] = max(worst[pool_dt], (err, label))
-            if label.startswith("gemma"):
+            if label.startswith(("gemma", "prefix trace")):
                 gemma_err = max(gemma_err, err)
-                print(f"  gemma-2b shape, pools {pool_dt}, q {q_dt}: max "
-                      f"abs err {err:.3e}")
+                print(f"  {label}, pools {pool_dt}, q {q_dt}: max abs err "
+                      f"{err:.3e}")
     print(f"paged kernel phase: {n_cmp} comparisons passed (tol "
           f"{PAGED_TOL[f32]:g} fp32 pools, {PAGED_TOL[bf16]:g} bf16 pools); "
-          f"max abs err at gemma-2b's shape {gemma_err:.3e}; over all "
+          f"max abs err at gemma-2b's shape (own and shared-page tables) "
+          f"{gemma_err:.3e}; over all "
           f"cases {worst[f32][0]:.3e} with fp32 pools ({worst[f32][1]}), "
           f"{worst[bf16][0]:.3e} with bf16 pools ({worst[bf16][1]})")
     return gemma_err
+
+
+def prefix_requests(vocab: int) -> list:
+    """Eight requests sharing one 512-token prefix, distinct suffixes."""
+    rng = np.random.default_rng(SEED + 5)
+    prefix = rng.integers(0, vocab, size=PREFIX_LEN)
+    return [Request(rid=i, tokens=np.concatenate(
+                [prefix, rng.integers(0, vocab, size=n)]),
+                    max_new_tokens=MAX_NEW, arrival=a)
+            for i, (n, a) in enumerate(zip(SUFFIX_LENS, ARRIVALS))]
+
+
+def replay_prefix(vocab: int):
+    """The prefix phase's admission and decode protocol replayed on the
+    host (the engine's: one admission at a time, copy-on-write, ensure,
+    register; then ensure per step). Yields (pool, scheduler) before each
+    decode step; the tables depend on the prompts alone, not on the
+    tokens sampled."""
+    psz, n_slots = PREFIX_ENGINE.page_size, PREFIX_ENGINE.n_slots
+    reqs = prefix_requests(vocab)
+    max_pages = -(-max(r.prompt_len + MAX_NEW for r in reqs) // psz)
+    pool = PagePool(psz, n_slots * max_pages, n_slots, max_pages,
+                    prefix_cache=True, device="cpu")
+    sched = SlotScheduler(n_slots, pool=pool)
+    for r in reqs:
+        sched.submit(r)
+    while sched.has_work():
+        while batch := sched.admit(limit=1):
+            [(slot, r)] = batch
+            pool.cow_if_needed(slot)
+            pool.ensure(slot, r.prompt_len)
+            pool.register_prefix(slot, r.tokens)
+            sched.started(slot, 0)
+        active = sched.active_mask()
+        if not active.any():
+            sched.idle_tick()
+            continue
+        for i in np.flatnonzero(active):
+            pool.ensure(int(i), int(sched.positions()[i]) + 1)
+        yield pool, sched
+        sched.advance(np.zeros(n_slots, np.int64))
+
+
+def shared_page_snapshot(vocab: int):
+    """The decode step of the prefix trace whose page table maps the most
+    physical pages into more than one slot: (table, pos, pool pages with
+    the scratch page, shared page count)."""
+    best = None
+    for pool, sched in replay_prefix(vocab):
+        table = pool.device_table().numpy().copy()
+        live = table[sched.active_mask()]
+        pages, counts = np.unique(live[live != pool.scratch_page],
+                                  return_counts=True)
+        shared = int((counts > 1).sum())
+        if best is None or shared > best[3]:
+            best = (table, sched.positions().copy(), pool.n_pages + 1,
+                    shared)
+    if best is None or best[3] == 0:
+        raise AssertionError("no decode step of the prefix trace maps a "
+                             "page into two slots")
+    return best
 
 
 def lm_requests(vocab: int) -> list:
@@ -913,7 +1005,6 @@ def first_step_logits(cfg, params, dev):
 def replay_positions(vocab: int) -> list:
     """Per decode step of the slice's trace, the (pos, active) arrays the
     engine feeds the step: the scheduler and pool replayed on the host."""
-    from repro_torch.serve import SlotScheduler
     reqs = lm_requests(vocab)
     psz, n_slots = LM_ENGINE.page_size, LM_ENGINE.n_slots
     max_pages = -(-max(n + MAX_NEW for n in PROMPT_LENS) // psz)
@@ -1001,13 +1092,203 @@ def lm_slice_phase(dev) -> dict:
         print(f"    prefill bucket {bk:5d}{' (first call)' if cold else ''}"
               f": {', '.join(f'{d:.1f}' for d in durs)} us")
     out.update(
-        cfg=cfg16, params=p16, steps=steps,
+        cfg=cfg16, params=p16, steps=steps, cfg32=cfg32, params32=p32,
+        tokens32=g32[0].tokens,
         launches=k32[1] + k16[1], steady_tokens_per_sec=res.stats[
             "steady_tokens_per_sec"],
         step_p50_us=step["p50"], step_p99_us=step["p99"],
         ttft_p50_us=ttft["p50"], ttft_p99_us=ttft["p99"],
         peak_gb=peak / 1e9, bf16_token_agreement=same / total)
     return out
+
+
+def _per_token_ms(res) -> float:
+    return 1e3 * res.wall_s / max(res.stats["generated_tokens"], 1)
+
+
+def token_mismatch(what, cfg, params, prompt, got, want):
+    """Raise on the first step where ``got`` leaves ``want``, after
+    printing the step and the top-2 margin of the logits there, from a
+    prefill of the prompt and ``want``'s tokens before it."""
+    j = next(i for i, (a, b) in enumerate(zip(got, want)) if a != b)
+    seq = np.concatenate([np.asarray(prompt), np.asarray(want[:j])])
+    with torch.no_grad():
+        lg, _ = LM.prefill(params, {"tokens": torch.as_tensor(
+            seq, device=params["embed"].device)[None]}, cfg)
+    top = torch.topk(lg[0], 2)
+    print(f"  {what}: first differing token at step {j}: got {got[j]}, "
+          f"want {want[j]}; top-2 logits there {top.values.tolist()} "
+          f"(ids {top.indices.tolist()}), margin "
+          f"{float(top.values[0] - top.values[1]):.3e}")
+    raise AssertionError(f"{what}: fp32 tokens differ from step {j}")
+
+
+def same_tokens(what, cfg, params, reqs, got: dict, want: dict) -> None:
+    for r in reqs:
+        if got[r.rid] != want[r.rid]:
+            token_mismatch(f"{what}, request {r.rid}", cfg, params,
+                           r.tokens, got[r.rid], want[r.rid])
+
+
+def b2_launches(what, cfg, res, use_kernel=True) -> int:
+    """B2's launches over one run, held to 2 x layers x the run's
+    single-query paged decode steps (0 off the kernel path)."""
+    launches = paged_attn.LAUNCHES
+    want = (paged_attn.KERNELS_PER_CALL * cfg.n_layers
+            * res.stats["decode_steps"] if use_kernel else 0)
+    if launches != want:
+        raise AssertionError(f"{what}: paged_attn launched {launches} "
+                             f"kernels, expected {want}")
+    return launches
+
+
+def generate_phase(lm, dev) -> int:
+    """``generate`` at full width, fp32 tokens against paged serving."""
+    prompts = np.random.default_rng(SEED + 1).integers(
+        0, lm["cfg"].vocab, size=GEN_SHAPE)
+    b, s = GEN_SHAPE
+    launches = 0
+    for cfg, params in ((lm["cfg32"], lm["params32"]),
+                        (lm["cfg"], lm["params"])):
+        torch.cuda.synchronize()
+        paged_attn.LAUNCHES = 0
+        t0 = time.perf_counter()
+        out = generate(params, cfg, prompts,
+                       EngineConfig(max_new_tokens=MAX_NEW))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if paged_attn.LAUNCHES:
+            raise AssertionError("generate launched the paged kernel")
+        gen = out[:, s:].cpu().numpy()
+        if out.shape != (b, s + MAX_NEW) or not np.array_equal(
+                out[:, :s].cpu().numpy(), prompts) \
+                or gen.min() < 0 or gen.max() >= cfg.vocab:
+            raise AssertionError(f"generate: bad output {tuple(out.shape)}")
+        reqs = [Request(rid=i, tokens=prompts[i], max_new_tokens=MAX_NEW)
+                for i in range(b)]
+        paged_attn.LAUNCHES = 0
+        res = serve_continuous(params, cfg, reqs,
+                               LM_ENGINE.replace(use_kernel=True))
+        launches += b2_launches("generate's paged twin", cfg, res)
+        got = {i: gen[i].tolist() for i in range(b)}
+        agree = sum(a == c for i in range(b)
+                    for a, c in zip(got[i], res.tokens[i]))
+        print(f"  generate {cfg.dtype}: {b} x {s}-token prompts, {MAX_NEW} "
+              f"new tokens in {wall:.2f} s wall (prefill included): "
+              f"{1e3 * wall / (b * MAX_NEW):.2f} ms per token, "
+              f"{b * MAX_NEW / wall:.1f} tok/s; paged serving of the same "
+              f"requests {_per_token_ms(res):.2f} ms per token; tokens "
+              f"agree at {agree}/{b * MAX_NEW}")
+        if cfg is lm["cfg32"]:
+            same_tokens("generate vs paged serving", cfg, params, reqs,
+                        got, res.tokens)
+    return launches
+
+
+def contiguous_phase(lm) -> None:
+    """``serve_continuous(paged=False)`` on the LM trace, fp32 tokens
+    against the paged path's."""
+    cfg, params = lm["cfg32"], lm["params32"]
+    reqs = lm_requests(cfg.vocab)
+    paged_attn.LAUNCHES = 0
+    res = serve_continuous(params, cfg, reqs,
+                           EngineConfig(n_slots=LM_ENGINE.n_slots))
+    b2_launches("contiguous serving", cfg, res, use_kernel=False)
+    print(f"  contiguous fp32: {res.stats['decode_steps']} decode steps, "
+          f"cache_len {res.stats['cache_len']}, prefill tokens "
+          f"{res.stats['prefill_tokens']} (unbucketed), steady "
+          f"{res.stats['steady_tokens_per_sec']} tok/s, "
+          f"{_per_token_ms(res):.2f} ms per token over {res.wall_s:.2f} s")
+    same_tokens("contiguous vs paged serving", cfg, params, reqs,
+                res.tokens, lm["tokens32"])
+    print("  contiguous fp32 tokens equal the paged path's")
+
+
+def prefix_phase(lm) -> dict:
+    """The prefix cache through B2: on/off in fp32 and bf16."""
+    out = {"launches": 0}
+    for cfg, params in ((lm["cfg32"], lm["params32"]),
+                        (lm["cfg"], lm["params"])):
+        reqs = prefix_requests(cfg.vocab)
+        runs = {}
+        for on in (True, False):
+            paged_attn.LAUNCHES = 0
+            res = serve_continuous(params, cfg, reqs,
+                                   PREFIX_ENGINE.replace(prefix_cache=on))
+            out["launches"] += b2_launches(
+                f"prefix_cache={on} {cfg.dtype}", cfg, res)
+            runs[on] = res
+            st = res.stats
+            print(f"  prefix_cache={on} {cfg.dtype}: "
+                  f"{st['decode_steps']} decode steps, prefill tokens "
+                  f"{st['prefill_tokens']}, prefix hits "
+                  f"{st.get('prefix_hits', 0)}, shared pages "
+                  f"{st.get('shared_pages', 0)}, copy-on-write copies "
+                  f"{st['paging'].get('cow_copies', 0)}; steady "
+                  f"{st['steady_tokens_per_sec']} tok/s, "
+                  f"{_per_token_ms(res):.2f} ms per token over "
+                  f"{res.wall_s:.2f} s (first calls {st['compile_time_s']}"
+                  f" s)")
+        on, off = runs[True], runs[False]
+        steps = sum(1 for _ in replay_prefix(cfg.vocab))
+        if steps != on.stats["decode_steps"]:
+            raise AssertionError(f"the host replay took {steps} decode "
+                                 f"steps, the run {on.stats['decode_steps']}")
+        if on.stats["prefix_hits"] < MIN_PREFIX_HITS \
+                or on.stats["shared_pages"] <= 0:
+            raise AssertionError(f"prefix cache: {on.stats['prefix_hits']}"
+                                 f" hits, {on.stats['shared_pages']} shared"
+                                 f" pages")
+        if cfg is lm["cfg32"]:
+            same_tokens("prefix cache on vs off", cfg, params, reqs,
+                        on.tokens, off.tokens)
+            print("  fp32 tokens with the prefix cache equal those without")
+            out.update(hits=on.stats["prefix_hits"],
+                       shared_pages=on.stats["shared_pages"],
+                       prefill_on=on.stats["prefill_tokens"],
+                       prefill_off=off.stats["prefill_tokens"])
+        else:
+            agree = sum(a == b for r in reqs for a, b in
+                        zip(on.tokens[r.rid], off.tokens[r.rid]))
+            print(f"  bf16 tokens with and without the prefix cache agree "
+                  f"at {agree}/{len(reqs) * MAX_NEW}")
+    return out
+
+
+def speculative_phase(lm) -> None:
+    """Speculative serving of the LM trace, fp32, against plain paged
+    serving's tokens; the draft's derivation timed at full width."""
+    cfg, params = lm["cfg32"], lm["params32"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    draft = derive_draft_params(params, DRAFT_RATES[-1])
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    w = draft["layers"][0]["ffn"]["w_up"]
+    print(f"  derive_draft_params at rate {DRAFT_RATES[-1]}: {dt:.2f} s for "
+          f"{7 * cfg.n_layers} weight matrices (layer 0 w_up density "
+          f"{float((w != 0).float().mean()):.4f})")
+    del draft, w
+    reqs = lm_requests(cfg.vocab)
+    for rate in DRAFT_RATES:
+        engine = LM_ENGINE.replace(use_kernel=True, speculative=True,
+                                   spec_k=SPEC_K, draft_prune_rate=rate)
+        paged_attn.LAUNCHES = 0
+        res = serve_continuous(params, cfg, reqs, engine)
+        # every verify step carries k+1 queries: the gather path, no B2
+        b2_launches(f"speculative rate {rate}", cfg, res, use_kernel=False)
+        sp = res.stats["speculative"]
+        decoded = res.stats["generated_tokens"] - len(reqs)
+        print(f"  speculative fp32, spec_k {SPEC_K}, draft prune rate "
+              f"{rate}: {sp['rounds']} rounds, acceptance "
+              f"{sp['acceptance_rate']} ({sp['accepted']}/{sp['proposed']}"
+              f"), {decoded / sp['rounds']:.2f} tokens per round over the "
+              f"batch, {_per_token_ms(res):.2f} ms per token over "
+              f"{res.wall_s:.2f} s (first calls "
+              f"{res.stats['compile_time_s']} s)")
+        same_tokens(f"speculative rate {rate} vs paged serving", cfg,
+                    params, reqs, res.tokens, lm["tokens32"])
+    print("  speculative fp32 tokens equal plain paged serving's")
 
 
 def decode_profile(lm, n=5) -> None:
@@ -1188,6 +1469,10 @@ def main() -> int:
     lm = phase("LM slice", lm_slice_phase, dev)
     phase("LM decode profile", decode_profile, lm)
     pt = phase("B2 timing", paged_timing_phase, lm, dev)
+    gen_launches = phase("generate", generate_phase, lm, dev)
+    phase("contiguous serving", contiguous_phase, lm)
+    px = phase("prefix cache", prefix_phase, lm)
+    phase("speculative serving", speculative_phase, lm)
     print(f"[total {time.perf_counter() - t_start:.1f} s]")
     print(json.dumps({"kernels": [{
         **KERNEL, "launches": sl["launches"], "max_abs_err": max_err,
@@ -1198,7 +1483,8 @@ def main() -> int:
         "graph_ms": tm["graph_ms"], "library_graph_ms": tm["library_graph_ms"],
         "us_per_frame": sl["us_per_frame"], "frame_p99_us": sl["p99_us"],
     }, {
-        **PAGED_KERNEL, "launches": lm["launches"],
+        **PAGED_KERNEL,
+        "launches": lm["launches"] + gen_launches + px["launches"],
         "max_abs_err": paged_err, "ms": pt["ms"],
         "plain_ms": pt["plain_ms"], "bound_ms": pt["bound_ms"],
         "bound_by": pt["bound_by"], "library_ms": pt["library_ms"],

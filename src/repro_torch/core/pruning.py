@@ -87,17 +87,23 @@ def csb_masks(w: torch.Tensor, spec: CSBSpec
 
     Returns ``row_mask (Br, Bc, bm)`` and ``col_mask (Br, Bc, bn)`` (bool).
     Rank-3 inputs (stacked layers, leading L axis) are masked per layer.
+
+    The l2 scores are sums of squares taken in fp32 and rounded once to
+    the weight's dtype: what XLA computes for the JAX package's jitted
+    ``csb_project`` (the self-draft's projection), which drops the bf16
+    rounding of each square that an eager bf16 evaluation would keep.
+    fp32 weights are unaffected.
     """
     if w.ndim == 3:
         rms, cms = zip(*(csb_masks(x, spec) for x in w))
         return torch.stack(rms), torch.stack(cms)
     bm, bn = spec.bm, spec.bn
-    blocks = to_blocks(w, bm, bn)           # (Br, Bc, bm, bn)
+    blocks = to_blocks(w, bm, bn).to(torch.float32)  # (Br, Bc, bm, bn)
     br, bc = blocks.shape[:2]
     q = 1.0 - math.sqrt(max(1.0 - spec.prune_rate, 0.0))
 
     # --- RowPrune: per block-column, over all Br*bm row slices ----------
-    rn = torch.sum(blocks * blocks, dim=3)  # (Br, Bc, bm)
+    rn = torch.sum(blocks * blocks, dim=3).to(w.dtype)  # (Br, Bc, bm)
     keep_r = max(int(round((1.0 - q) * br * bm)), 1)
     rn_col = rn.permute(1, 0, 2).reshape(bc, br * bm)
     row_mask = _topk_mask(rn_col, keep_r)
@@ -105,7 +111,7 @@ def csb_masks(w: torch.Tensor, spec: CSBSpec
 
     # --- ColumnPrune: per block-row, on the row-masked blocks -----------
     masked = blocks * row_mask[..., :, None]
-    cn = torch.sum(masked * masked, dim=2)  # (Br, Bc, bn)
+    cn = torch.sum(masked * masked, dim=2).to(w.dtype)  # (Br, Bc, bn)
     keep_c = max(int(round((1.0 - q) * bc * bn)), 1)
     cn_row = cn.reshape(br, bc * bn)
     col_mask = _topk_mask(cn_row, keep_c).reshape(br, bc, bn)

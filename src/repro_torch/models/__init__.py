@@ -1,17 +1,20 @@
-"""repro_torch.models — the decoder LM of the paged serve path.
+"""repro_torch.models — the decoder LM of the serve paths.
 
 ``config`` is a copy of the JAX package's configuration; ``layers`` and
-``lm`` port the attention decoder's prefill and paged decode step.
+``lm`` port the attention decoder's prefill, partial prefill and decode
+step through the contiguous cache and the paged pool.
 """
 from . import layers
 from .config import SHAPES, ModelConfig, ShapeConfig, reduced
 from .lm import (
-    assemble_inputs, decode_step_paged, embed_tokens, head_f32,
-    head_weight, init_paged_cache, init_params, prefill,
+    assemble_inputs, decode_step, decode_step_paged, embed_tokens, head_f32,
+    head_weight, init_cache, init_paged_cache, init_params, prefill,
+    prefill_partial,
 )
 
 __all__ = [
     "SHAPES", "ModelConfig", "ShapeConfig", "assemble_inputs",
-    "decode_step_paged", "embed_tokens", "head_f32", "head_weight",
-    "init_paged_cache", "init_params", "layers", "prefill", "reduced",
+    "decode_step", "decode_step_paged", "embed_tokens", "head_f32",
+    "head_weight", "init_cache", "init_paged_cache", "init_params",
+    "layers", "prefill", "prefill_partial", "reduced",
 ]

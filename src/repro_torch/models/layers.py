@@ -12,8 +12,8 @@ order differs.
 
 The JAX package pins layouts with ``shard(...)``/``replicated()`` to work
 around XLA:CPU SPMD miscompiles; the port has no mesh and drops them.
-The paged cache primitives write the pool in place (``paged_write``),
-where JAX returns a new array: it saves a copy of the whole pool per
+The cache primitives write in place (``_cache_write``, ``paged_write``),
+where JAX returns a new array: it saves a copy of the whole cache per
 layer and step. MLA, SSD, hybrid and MoE layers wait for later slices.
 """
 from __future__ import annotations
@@ -169,6 +169,40 @@ def blockwise_attention(
     return torch.cat(outs, dim=1)[:, :s]
 
 
+def context_attention(q, k, v, ctx_k, ctx_v, start: int, *, window=None):
+    """Suffix attention against a fixed, already-computed prefix context
+    (the prefix-cache partial prefill).
+
+    ``q``/``k``/``v`` are the suffix projections, (B, S, H|KV, D), at
+    absolute positions ``start + arange(S)``; ``ctx_k``/``ctx_v`` are the
+    cached prefix KV, (B, C, KV, D), of which only positions ``< start``
+    are real (the context rides padded to whole pages; the padding is
+    masked here).
+
+    A single-chunk mirror of :func:`blockwise_attention`'s math over
+    ``concat([ctx, suffix])`` keys: a masked column adds exactly -1e30 to
+    the max and exactly 0 to the sums, so a suffix row equals the full
+    single-chunk prefill's row (prompts within one kv chunk)."""
+    b, s, h, d = q.shape
+    c = ctx_k.shape[1]
+    dev = q.device
+    scale = 1.0 / math.sqrt(d)
+    kk = torch.cat([ctx_k.to(k.dtype), k], dim=1)
+    vv = torch.cat([ctx_v.to(v.dtype), v], dim=1)
+    qpos = start + torch.arange(s, device=dev)
+    kpos = torch.cat([torch.arange(c, device=dev), qpos])
+    valid = torch.cat([torch.arange(c, device=dev) < start,
+                       torch.ones((s,), dtype=torch.bool, device=dev)])
+    mask = (qpos[:, None] >= kpos[None, :]) & valid[None, :]
+    if window is not None:
+        mask &= qpos[:, None] - kpos[None, :] < window
+    o, _, l = _attend_chunk(q, kk, vv, mask, scale)
+    o = o / torch.clamp(l[..., None], min=1e-30)
+    dv = vv.shape[3]
+    o = o.permute(0, 3, 1, 2, 4).reshape(b, s, h, dv)
+    return o.to(q.dtype)
+
+
 # ---------------------------------------------------------------------------
 # GQA attention sublayer
 # ---------------------------------------------------------------------------
@@ -235,6 +269,68 @@ def _decode_mask(t: int, row_pos, s: int, window):
     return mask
 
 
+def _cache_write(buf: torch.Tensor, new: torch.Tensor, pos) -> torch.Tensor:
+    """Write ``new`` (B, s, ...) into ``buf`` (B, T, ...) at time ``pos``
+    (scalar, or (B,) with a per-row offset), in place; returns ``buf``.
+
+    Each row's start is placed as JAX's ``dynamic_update_slice`` places
+    it: a negative start counts once from the end, then the start is
+    clamped to ``[0, T - s]``, so a verify step whose overhang runs past
+    the buffer lands shifted back inside it, not cut off."""
+    b, s = new.shape[0], new.shape[1]
+    t = buf.shape[1]
+    dev = buf.device
+    start = torch.as_tensor(pos, dtype=torch.int64, device=dev)
+    start = start.reshape(-1).expand(b)
+    start = torch.clamp(torch.where(start < 0, start + t, start), 0, t - s)
+    rows = torch.arange(b, device=dev)[:, None]
+    buf[rows, start[:, None] + torch.arange(s, device=dev)] = \
+        new.to(buf.dtype)
+    return buf
+
+
+def _attend_cache(q, kc, vc, row_pos, cfg: ModelConfig):
+    """Decode attention of the s query tokens ``q`` (B, s, H, D) against
+    a per-slot cache (B, T, KV, D), with the causal decode mask at
+    ``row_pos``. Returns (B, s, H*Dv) fp32."""
+    b, s = q.shape[0], q.shape[1]
+    t, kv = kc.shape[1], kc.shape[2]
+    qh = q.reshape(b, s, kv, cfg.n_heads // kv, cfg.hd)
+    sc = torch.einsum("bqgrd,bkgd->bgrqk", qh.to(kc.dtype).to(F32),
+                      kc.to(F32))
+    sc = sc / math.sqrt(cfg.hd)
+    mask = _decode_mask(t, row_pos, s, cfg.window)      # (1|B, S, T)
+    sc = torch.where(mask[:, None, None, :, :], sc,
+                     torch.tensor(-1e30, dtype=F32, device=sc.device))
+    # jax.nn.softmax's own form: exp(x - max) / sum
+    e = torch.exp(sc - torch.amax(sc, dim=-1, keepdim=True))
+    pattn = e / torch.sum(e, dim=-1, keepdim=True)
+    o = torch.einsum("bgrqk,bkgd->bqgrd", pattn.to(vc.dtype).to(F32),
+                     vc.to(F32))
+    return o.reshape(b, s, -1)
+
+
+def attn_decode(p, x, cfg: ModelConfig, cache, pos):
+    """Decode step through the contiguous cache. cache: {k: (B, T, KV, D),
+    v: ...}, written in place; ``pos`` scalar or (B,). x may carry s > 1
+    tokens (speculative verification): token i lands at ``pos + i`` and
+    attends causally through the batch it rides in."""
+    b, s, _ = x.shape
+    qpos, row_pos = _decode_pos(pos, s, x.device)
+    q, k, v = attn_qkv(p, x, cfg, qpos)
+    ck = _cache_write(cache["k"], k, pos)
+    cv = _cache_write(cache["v"], v, pos)
+    o = _attend_cache(q, ck, cv, row_pos, cfg).to(x.dtype)
+    return dense(o, p["wo"]), {"k": ck, "v": cv}
+
+
+def attn_cache_init(cfg: ModelConfig, batch: int, t: int, dtype,
+                    device) -> dict:
+    shape = (batch, t, cfg.n_kv, cfg.hd)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
 # ---------------------------------------------------------------------------
 # Paged cache primitives (serve.paging owns the page table; this is the
 # device half: position -> (page, offset) indirection on pool-shaped
@@ -297,25 +393,9 @@ def attn_decode_paged(p, x, cfg: ModelConfig, cache, pos, page_table,
                               window=cfg.window)
         o = o.reshape(b, s, -1).to(x.dtype)
         return dense(o, p["wo"]), {"k": ck, "v": cv}
-    kg = paged_gather(ck, page_table)           # (B, T, KV, D)
-    vg = paged_gather(cv, page_table)
-    t = kg.shape[1]
-    kv = kg.shape[2]
-    rep = cfg.n_heads // kv
-    qh = q.reshape(b, s, kv, rep, cfg.hd)
-    sc = torch.einsum("bqgrd,bkgd->bgrqk", qh.to(kg.dtype).to(F32),
-                      kg.to(F32))
-    sc = sc / math.sqrt(cfg.hd)
-    mask = _decode_mask(t, row_pos, s, cfg.window)      # (1|B, S, T)
-    sc = torch.where(mask[:, None, None, :, :], sc,
-                     torch.tensor(-1e30, dtype=F32, device=sc.device))
-    # jax.nn.softmax's own form: exp(x - max) / sum
-    e = torch.exp(sc - torch.amax(sc, dim=-1, keepdim=True))
-    pattn = e / torch.sum(e, dim=-1, keepdim=True)
-    o = torch.einsum("bgrqk,bkgd->bqgrd", pattn.to(vg.dtype).to(F32),
-                     vg.to(F32))
-    o = o.reshape(b, s, -1).to(x.dtype)
-    return dense(o, p["wo"]), {"k": ck, "v": cv}
+    o = _attend_cache(q, paged_gather(ck, page_table),
+                      paged_gather(cv, page_table), row_pos, cfg)
+    return dense(o.to(x.dtype), p["wo"]), {"k": ck, "v": cv}
 
 
 def attn_paged_cache_init(cfg: ModelConfig, n_pages: int, page_size: int,

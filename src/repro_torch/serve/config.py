@@ -2,10 +2,9 @@
 
 A copy of ``repro.serve.config``, which has no JAX code: the same
 frozen, validated :class:`EngineConfig`, so a configuration means the
-same thing in both packages. The port's engine consumes it in
-``rnn_serve_frames`` (``frame_warmup``, ``collect_frame_times``); the
-LM-serving fields wait for the port of the LM serve stack and are kept
-so that the validation rules stay identical.
+same thing in both packages. The port's engine consumes every field:
+``generate`` and ``serve_continuous`` the LM-serving ones,
+``rnn_serve_frames`` ``frame_warmup`` and ``collect_frame_times``.
 
 Cross-field constraints live in ``__post_init__`` so an invalid
 combination fails at construction: ``use_kernel``/``prefix_cache``/

@@ -1,13 +1,18 @@
 """Serving engines, ported from ``repro.serve.engine``.
 
+``generate`` — prefill a batch of prompts, then greedy/temperature decode
+one token at a time through the contiguous cache (or, with
+``config.speculative``, through ``serve.speculative``).
+
 ``serve_continuous`` — the production shape for decoder LMs: a fixed
 batch of decode *slots* fed by :class:`SlotScheduler`. Requests with
 mixed prompt lengths arrive over time; a finished request's slot is
-evicted and the next queued prompt prefilled into it mid-decode. This
-slice ports the paged path (``paged=True``): the slots share the
-``serve.paging`` block pool (admission by free pages, page-table decode,
-pow2 prompt-bucketed prefill), and ``use_kernel=True`` runs decode
-attention through the paged-attention CUDA kernel.
+evicted and the next queued prompt prefilled into it mid-decode. The
+slots hold contiguous worst-case-length caches, or (``paged=True``) share
+the ``serve.paging`` block pool (admission by free pages, page-table
+decode, pow2 prompt-bucketed prefill, optional prefix sharing), and
+``use_kernel=True`` runs paged decode attention through the
+paged-attention CUDA kernel.
 
 ``rnn_serve_frames`` — the paper's own serving shape: frame-by-frame RNN
 inference (one MVM-bound cell step per frame) with CSB-compressed
@@ -34,8 +39,9 @@ from repro_torch.obs import metrics as obs_metrics, trace as obs_trace
 from .config import EngineConfig, resolve_config
 from .paging import PagePool, pages_for
 from .scheduler import (
-    Request, SlotScheduler, evict_slot_state, fit_cache_len,
-    insert_paged_cache,
+    _TIME_KEYS, Request, SlotScheduler, cache_len_of, copy_page_cache,
+    evict_slot, evict_slot_state, fit_cache_len, grow_cache,
+    insert_paged_cache, insert_paged_span, insert_slot_cache,
 )
 
 
@@ -52,7 +58,8 @@ class _Runner:
     """One (params, cfg) serving context on one device: holds the
     parameters, one fp32 copy of the head for the logits product (so
     that a low-precision model does not cast its (d, V) head on every
-    step), and the cold-call bookkeeping.
+    step; ``head=`` shares another runner's), and the cold-call
+    bookkeeping.
 
     ``last_cold`` is True when the preceding prefill/step call was the
     first with its shape key (prefill length; decode-step variant): that
@@ -60,10 +67,10 @@ class _Runner:
     libraries' workspaces), and the engine charges its wall time to
     ``compile_time_s`` instead of the steady-state throughput."""
 
-    def __init__(self, params, cfg: ModelConfig):
+    def __init__(self, params, cfg: ModelConfig, head=None):
         self.cfg = cfg
         self.params = params
-        self.head = LM.head_f32(params, cfg)
+        self.head = LM.head_f32(params, cfg) if head is None else head
         self.last_cold = False
         self._seen_keys: set = set()
 
@@ -78,6 +85,19 @@ class _Runner:
         return self._call_cold(key, lambda: LM.prefill(
             self.params, {"tokens": tokens}, self.cfg, last_pos=last_pos,
             head=self.head))
+
+    def prefill_partial(self, tokens: torch.Tensor, ctx: dict, start: int,
+                        last_pos: int):
+        """Prefill a prompt suffix against gathered shared-prefix pages."""
+        key = ("prefill_partial", tuple(tokens.shape), cache_len_of(ctx))
+        return self._call_cold(key, lambda: LM.prefill_partial(
+            self.params, {"tokens": tokens}, ctx, self.cfg, start=start,
+            last_pos=last_pos, head=self.head))
+
+    def step(self, cache, tokens, pos):
+        key = ("step", torch.as_tensor(pos).ndim)
+        return self._call_cold(key, lambda: LM.decode_step(
+            self.params, cache, tokens, pos, self.cfg, head=self.head))
 
     def step_paged(self, cache, tokens, pos, page_table,
                    use_kernel: bool = False):
@@ -103,6 +123,67 @@ def _sampler(temperature: float, generator: torch.Generator | None):
     return sample
 
 
+# ---------------------------------------------------------------------------
+# fixed-batch generate
+# ---------------------------------------------------------------------------
+
+def generate(params, cfg: ModelConfig, tokens,
+             config: EngineConfig | None = None,
+             generator: torch.Generator | None = None, *, mesh=None,
+             device=None) -> torch.Tensor:
+    """tokens: (B, S_prompt) ids (array or tensor). Returns (B, S + new)
+    int64 on ``device`` (``None`` means the card; parameters move there).
+
+    Prefills the batch, then decodes ``config.max_new_tokens`` tokens one
+    step at a time through the contiguous cache, every row at the same
+    (scalar) position. Greedy decoding (``temperature=0``) gives the JAX
+    package's tokens; at ``temperature > 0`` tokens are drawn from
+    ``generator`` (a ``torch.Generator`` on ``device``; default: a fresh
+    one seeded 0). With ``config.speculative`` a CSB-pruned self-draft
+    proposes ``spec_k``-token runs that the target verifies in one
+    multi-position decode step (``serve.speculative``); tokens are
+    identical to the plain path at temperature 0.
+
+    Codebook and image-token frontends raise ``NotImplementedError`` (the
+    frontends slice), and so does ``mesh=`` (the multi-GPU slice)."""
+    scfg = resolve_config(config, caller="generate")
+    if mesh is not None:
+        raise NotImplementedError(
+            "generate(mesh=...) waits for the multi-GPU slice of the port")
+    if cfg.n_codebooks or cfg.n_img_tokens:
+        raise NotImplementedError(
+            "generate() drives text token ids; the codebook (musicgen) and "
+            "image-token (internvl2) frontends come with the frontends "
+            "slice of the port")
+    if scfg.speculative:
+        from .speculative import generate_speculative
+        return generate_speculative(params, cfg, tokens, scfg, generator,
+                                    device=device)
+    dev = resolve_device(device)
+    tokens = torch.as_tensor(tokens, device=dev).long()
+    b, s = tokens.shape[:2]
+    total = scfg.cache_len or (s + scfg.max_new_tokens)
+    runner = _Runner(_to_device(params, dev), cfg)
+    if generator is None and scfg.temperature > 0.0:
+        generator = torch.Generator(device=dev).manual_seed(0)
+    sample = _sampler(scfg.temperature, generator)
+    with torch.no_grad():
+        logits, cache = runner.prefill(tokens)
+        # right-size the cache for the decode loop
+        cache = grow_cache(cache, total - cache_len_of(cache))
+        out = [tokens]
+        cur = sample(logits)[:, None]
+        for i in range(scfg.max_new_tokens):
+            out.append(cur)
+            lg, cache = runner.step(cache, cur, s + i)
+            cur = sample(lg[:, -1])[:, None]
+    return torch.cat(out, dim=1)
+
+
+# ---------------------------------------------------------------------------
+# continuous batching
+# ---------------------------------------------------------------------------
+
 @dataclasses.dataclass
 class ServeResult:
     """Outcome of a continuous-batching run."""
@@ -120,22 +201,40 @@ class ServeResult:
         return self.stats["tokens_per_sec"]
 
 
+def _gather_ctx(cache: dict, pages) -> dict:
+    """Pull the shared-prefix pages out of the live paged cache as a
+    contiguous per-layer context for the partial prefill. ``pages`` is a
+    host array of physical page ids (scratch-padded to a pow2 count, as
+    the JAX engine pads it to bound its compiled variants); each time
+    leaf (L, N, P, ...) gathers to (L, 1, len(pages) * P, ...)."""
+    out = {}
+    for key, leaf in cache.items():
+        assert key in _TIME_KEYS, \
+            "prefix sharing needs an all-pool cache (attn)"
+        idx = torch.as_tensor(np.asarray(pages, np.int64),
+                              device=leaf.device)
+        g = leaf[:, idx]
+        out[key] = g.reshape((g.shape[0], 1, g.shape[1] * g.shape[2])
+                             + tuple(g.shape[3:]))
+    return out
+
+
 def serve_continuous(params, cfg: ModelConfig, requests: list[Request],
                      config: EngineConfig | None = None, *, mesh=None,
                      generator: torch.Generator | None = None,
                      device=None) -> ServeResult:
     """Serve ``requests`` (mixed prompt lengths, arriving over time)
-    through ``config.n_slots`` continuously-batched decode slots backed
-    by the paged KV pool (``config.paged`` must be True).
+    through ``config.n_slots`` continuously-batched decode slots.
 
     Parameters (as ``models.lm.init_params`` or
     ``convert.lm_params_from_numpy`` make them) move to ``device``
     (``None`` means the card; a no-op where they already lie there).
     Each decode step runs every slot at its own position; admission
     prefills each arrived prompt and writes its cache into the freed
-    slot's pages. Greedy decoding (``temperature=0``) gives the JAX
-    package's tokens.
+    slot. Greedy decoding (``temperature=0``) gives the JAX package's
+    tokens, paged or not, and matches ``generate`` token for token.
 
+    ``paged=False`` gives every slot a contiguous ``cache_len`` cache.
     ``paged=True`` backs the slots with a shared pool of ``pool_pages``
     fixed-size token pages (``page_size`` each; default pool = the full
     contiguous capacity). Slots map logical positions to physical pages
@@ -143,15 +242,28 @@ def serve_continuous(params, cfg: ModelConfig, requests: list[Request],
     free pages, not free slots**, each request reserving only its own
     worst case. Pages free mid-decode the moment a request finishes.
 
-    ``use_kernel=True`` routes decode attention through the
-    paged-attention kernel (``kernels.paged_attn_decode``): the page-table
-    walk happens inside the kernel instead of a materialized
+    ``use_kernel=True`` (paged only) routes decode attention through the
+    paged-attention kernel (``kernels.paged_attn_decode``): the
+    page-table walk happens inside the kernel instead of a materialized
     ``(B, max_pages*P)`` gather; sampled tokens are unchanged.
 
     ``bucket_prompts`` (default: on when paged) right-pads each prompt to
     a pow2 **bucket** before prefill. Causal attention makes right
     padding invisible to real positions, so sampled tokens are
     unchanged.
+
+    ``prefix_cache=True`` (paged only) keeps prompt pages in a refcounted
+    radix trie after their request finishes and shares them across
+    requests: an admission whose prompt prefix matches pages already in
+    the pool maps them, prefills only the suffix
+    (``models.lm.prefill_partial``), and copies a partially shared page
+    before its first write. Sampled tokens are identical to
+    ``prefix_cache=False``; ``stats["prefix_hits"]`` and
+    ``stats["shared_pages"]`` count the sharing and
+    ``stats["prefill_tokens"]`` the prefill work done.
+
+    ``speculative=True`` dispatches to
+    :func:`serve.speculative.serve_continuous_speculative`.
 
     At ``temperature > 0`` tokens are drawn from ``generator`` (a
     ``torch.Generator`` on ``device``; default: a fresh one seeded 0).
@@ -167,49 +279,45 @@ def serve_continuous(params, cfg: ModelConfig, requests: list[Request],
     lifecycle spans (queue wait -> prefill -> TTFT -> decode), per-step
     spans and pool/occupancy gauge timelines, as the JAX engine does.
 
-    Not in this slice (each raises ``NotImplementedError``): the
-    contiguous cache (``paged=False``) and ``prefix_cache=True`` come
-    with the port's next serve slices, ``speculative=True`` with the
-    CSB-pruned draft, and ``mesh=`` with the multi-GPU slice.
+    ``mesh=`` raises ``NotImplementedError``: it waits for the multi-GPU
+    slice.
     """
     if cfg.n_codebooks:
         raise NotImplementedError(
             "serve_continuous drives single-stream token ids; codebook "
             "models go through generate()")
+    # invalid combinations (prefix_cache without paged, ...) raise
+    # ValueError inside EngineConfig.__post_init__
     config = resolve_config(config, caller="serve_continuous")
     if mesh is not None:
         raise NotImplementedError(
             "serve_continuous(mesh=...) waits for the multi-GPU slice of "
             "the port")
     if config.speculative:
-        raise NotImplementedError(
-            "speculative=True waits for the port's speculative-decoding "
-            "slice (the CSB-pruned draft through the CSB-MVM kernel)")
-    if not config.paged:
-        raise NotImplementedError(
-            "paged=False (the contiguous cache) waits for the port's "
-            "generate()/contiguous-cache slice; pass paged=True")
-    if config.prefix_cache:
-        raise NotImplementedError(
-            "prefix_cache=True waits for the port's prefix-cache slice")
+        from .speculative import serve_continuous_speculative
+        return serve_continuous_speculative(params, cfg, requests, config,
+                                            generator=generator,
+                                            device=device)
     dev = resolve_device(device)
     n_slots, temperature = config.n_slots, config.temperature
-    cache_len = config.cache_len
+    cache_len, paged = config.cache_len, config.paged
     page_size, pool_pages = config.page_size, config.pool_pages
     use_kernel = config.use_kernel
     bucket = (config.bucket_prompts if config.bucket_prompts is not None
-              else True)
+              else paged)
     bucket = bucket and cfg.mixer in ("attn", "mla")
+    prefix = config.prefix_cache and cfg.mixer in ("attn", "mla")
     if not requests:
         stats = SlotScheduler(n_slots).stats()
-        stats.update(cache_len=0, tokens_per_sec=0.0, paged=True,
-                     bucketed_prefill=bucket, prefix_cache=False,
+        stats.update(cache_len=0, tokens_per_sec=0.0, paged=paged,
+                     bucketed_prefill=bucket, prefix_cache=prefix,
                      prefill_tokens=0, compile_time_s=0.0,
                      steady_tokens_per_sec=0.0, sharded=False)
-        stats["paging"] = PagePool(
-            page_size, 1 if pool_pages is None else pool_pages, n_slots, 1,
-            device=dev).summary()
-        stats["page_stalls"] = 0
+        if paged:
+            stats["paging"] = PagePool(
+                page_size, 1 if pool_pages is None else pool_pages,
+                n_slots, 1, device=dev).summary()
+            stats["page_stalls"] = 0
         return ServeResult({}, stats, 0.0)
     cache_len = cache_len or max(
         r.prompt_len + r.max_new_tokens for r in requests)
@@ -226,18 +334,41 @@ def serve_continuous(params, cfg: ModelConfig, requests: list[Request],
         generator = torch.Generator(device=dev).manual_seed(0)
     sample = _sampler(temperature, generator)
 
-    max_pages = pages_for(cache_len, page_size)
-    # explicit pool_pages=0 must reject (PagePool raises), not silently
-    # fall back to the full contiguous footprint
-    n_pool = n_slots * max_pages if pool_pages is None else pool_pages
-    pool = PagePool(page_size, n_pool, n_slots, max_pages, device=dev)
+    pool = None
+    if paged:
+        max_pages = pages_for(cache_len, page_size)
+        # explicit pool_pages=0 must reject (PagePool raises), not
+        # silently fall back to the full contiguous footprint
+        n_pool = (n_slots * max_pages if pool_pages is None
+                  else pool_pages)
+        pool = PagePool(page_size, n_pool, n_slots, max_pages,
+                        prefix_cache=prefix, device=dev)
     sched = SlotScheduler(n_slots, pool=pool)
     for r in requests:
         sched.submit(r)
 
-    cache = LM.init_paged_cache(cfg, pool.n_pages, page_size, n_slots,
-                                getattr(torch, cfg.dtype), dev)
+    dtype = getattr(torch, cfg.dtype)
+    if paged:
+        cache = LM.init_paged_cache(cfg, pool.n_pages, page_size, n_slots,
+                                    dtype, dev)
+    else:
+        cache = LM.init_cache(cfg, n_slots, cache_len, dtype, dev)
     cur = torch.zeros((n_slots, 1), dtype=torch.int32, device=dev)
+
+    def _admissions():
+        # Under the prefix cache, admit one request at a time: each
+        # prompt registers right after its own prefill (below), so the
+        # NEXT admission's trie match — even in the same step — can
+        # already share it. Without the cache, one batched admit() call
+        # keeps the original page_stall accounting.
+        if not prefix:
+            yield from sched.admit()
+            return
+        while True:
+            batch = sched.admit(limit=1)
+            if not batch:
+                return
+            yield batch[0]
 
     prefill_tokens = 0
     # observability handles, fetched once per run: ``tr``/``reg`` are
@@ -281,7 +412,7 @@ def serve_continuous(params, cfg: ModelConfig, requests: list[Request],
         while sched.has_work():
             if obs_on:
                 _mark_eligible()
-            for slot, req in sched.admit():
+            for slot, req in _admissions():
                 tokens = np.asarray(req.tokens)
                 plen = req.prompt_len
                 if obs_on:
@@ -297,7 +428,28 @@ def serve_continuous(params, cfg: ModelConfig, requests: list[Request],
                         reg.histogram("serve/req/queue_wait_us").observe(
                             (t_adm - t_el) / 1e3)
                 t_pf = time.perf_counter_ns()
-                if bucket:
+                info = pool.shared_info(slot) if prefix else None
+                shared = info is not None and info.shared_pages > 0
+                if shared:
+                    # prefix-cache hit: gather the matched pages out of
+                    # the live pool and prefill only the suffix
+                    sstart = info.suffix_start
+                    s_real = plen - sstart
+                    suffix = tokens[sstart:]
+                    if bucket:
+                        suffix = np.pad(
+                            suffix, [(0, bucket_len(s_real) - s_real)])
+                    sp = info.shared_pages
+                    n_pad = 1 << max(sp - 1, 0).bit_length()
+                    ctx_row = np.concatenate([
+                        pool.slot_row(slot)[:sp],
+                        np.full(n_pad - sp, pool.scratch_page, np.int32)])
+                    logits, req_cache = runner.prefill_partial(
+                        torch.as_tensor(suffix, device=dev)[None],
+                        _gather_ctx(cache, ctx_row), start=sstart,
+                        last_pos=s_real - 1)
+                    prefill_tokens += int(suffix.shape[0])
+                elif bucket:
                     padded = np.pad(tokens, [(0, bucket_len(plen) - plen)])
                     logits, req_cache = runner.prefill(
                         torch.as_tensor(padded, device=dev)[None],
@@ -320,7 +472,7 @@ def serve_continuous(params, cfg: ModelConfig, requests: list[Request],
                         tr.complete("serve/req/prefill", t_pf, t_ft - t_pf,
                                     track=track,
                                     args={"rid": req.rid, "tokens": plen,
-                                          "shared": False,
+                                          "shared": shared,
                                           "cold": runner.last_cold})
                         tr.complete("serve/req/ttft", t_el, t_ft - t_el,
                                     track=track, args={"rid": req.rid})
@@ -330,16 +482,38 @@ def serve_continuous(params, cfg: ModelConfig, requests: list[Request],
                         reg.histogram("serve/req/ttft_us").observe(
                             (t_ft - t_el) / 1e3)
                 if sched.started(slot, first):
-                    pool.ensure(slot, plen)
-                    phys = list(pool.slot_pages(slot))
-                    # pad the page list to a pow2 count with the scratch
-                    # page, as the JAX engine does to bound its compiled
-                    # insert variants (the scratch page swallows the pad)
-                    n_pad = 1 << max(len(phys) - 1, 0).bit_length()
-                    phys += [pool.scratch_page] * (n_pad - len(phys))
-                    req_cache = fit_cache_len(req_cache,
-                                              len(phys) * page_size)
-                    cache = insert_paged_cache(cache, req_cache, phys, slot)
+                    if shared:
+                        # divergence inside a shared page: give the slot
+                        # a private copy BEFORE the suffix write lands
+                        cow = pool.cow_if_needed(slot)
+                        if cow is not None:
+                            cache = copy_page_cache(cache, *cow)
+                        pool.ensure(slot, plen)
+                        cache = insert_paged_span(
+                            cache, req_cache, pool.slot_row(slot), sstart,
+                            plen - sstart, slot)
+                    elif paged:
+                        pool.ensure(slot, plen)
+                        phys = list(pool.slot_pages(slot))
+                        # pad the page list to a pow2 count with the
+                        # scratch page, as the JAX engine does to bound
+                        # its compiled insert variants (the scratch page
+                        # swallows the pad)
+                        n_pad = 1 << max(len(phys) - 1, 0).bit_length()
+                        phys += [pool.scratch_page] * (n_pad - len(phys))
+                        req_cache = fit_cache_len(req_cache,
+                                                  len(phys) * page_size)
+                        cache = insert_paged_cache(cache, req_cache, phys,
+                                                   slot)
+                    else:
+                        if bucket:
+                            # drop pad positions; decode overwrites each
+                            # position before the mask ever exposes it
+                            req_cache = fit_cache_len(req_cache, plen)
+                        cache = insert_slot_cache(cache, req_cache, slot)
+                    if prefix:
+                        # future admissions may now share this prompt
+                        pool.register_prefix(slot, tokens)
                     cur[slot, 0] = first
                 elif obs_on:
                     # max_new_tokens == 1: finished off the prefill alone
@@ -353,13 +527,16 @@ def serve_continuous(params, cfg: ModelConfig, requests: list[Request],
             rid_by_slot = sched.slot_rids() if obs_on else None
             t_st = time.perf_counter_ns()
             pos = torch.as_tensor(pos_host, device=dev)
-            # alloc-on-grow: map the page each live slot writes this step
-            for i in np.flatnonzero(active):
-                pool.ensure(int(i), int(pos_host[i]) + 1)
-            pool.tick()
-            lg, cache = runner.step_paged(cache, cur, pos,
-                                          pool.device_table(),
-                                          use_kernel=use_kernel)
+            if paged:
+                # alloc-on-grow: map the page each live slot writes
+                for i in np.flatnonzero(active):
+                    pool.ensure(int(i), int(pos_host[i]) + 1)
+                pool.tick()
+                lg, cache = runner.step_paged(cache, cur, pos,
+                                              pool.device_table(),
+                                              use_kernel=use_kernel)
+            else:
+                lg, cache = runner.step(cache, cur, pos)
             nxt = sample(lg[:, -1])
             # the host pull below waits for the step, so the wall time
             # around it is the true per-step latency (the engine is
@@ -381,9 +558,11 @@ def serve_continuous(params, cfg: ModelConfig, requests: list[Request],
                     (t_en - t_st) / 1e3)
                 reg.gauge("serve/slots/active").set(n_active)
             for slot in sched.advance(nxt_host):
-                # pages went back to the allocator inside the scheduler;
-                # per-slot recurrent state still needs the device zero
-                cache = evict_slot_state(cache, slot)
+                # paged: the pages went back to the allocator inside the
+                # scheduler, and only per-slot recurrent state needs the
+                # device zero; contiguous: the whole slot is zeroed
+                cache = (evict_slot_state(cache, slot) if paged
+                         else evict_slot(cache, slot))
                 if obs_on:
                     _finish_req(rid_by_slot[slot], time.perf_counter_ns())
             cur = nxt[:, None].to(torch.int32)
@@ -393,9 +572,9 @@ def serve_continuous(params, cfg: ModelConfig, requests: list[Request],
 
     stats = sched.stats()
     stats["cache_len"] = cache_len
-    stats["paged"] = True
+    stats["paged"] = paged
     stats["bucketed_prefill"] = bucket
-    stats["prefix_cache"] = False
+    stats["prefix_cache"] = prefix
     stats["prefill_tokens"] = prefill_tokens
     stats["tokens_per_sec"] = round(
         stats["generated_tokens"] / wall, 3) if wall > 0 else 0.0

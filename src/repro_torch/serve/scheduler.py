@@ -14,15 +14,13 @@ A port of ``repro.serve.scheduler``:
   device array.
 * :func:`cache_len_of`, :func:`grow_cache` and :func:`fit_cache_len` are
   the cache time-dim helpers, on dicts of tensors.
-* :func:`insert_paged_cache` and :func:`evict_slot_state` are the device
-  half of the paged path. They write the batch cache in place and return
-  it (JAX's donated jit returns a new tree), which saves a copy of the
-  whole pool per admission and eviction.
-
-The contiguous-cache helpers (``insert_slot_cache``, ``evict_slot``) and
-the prefix-cache helpers (``insert_paged_span``, ``copy_page_cache``)
-wait for the slices that port the contiguous engine and the prefix
-cache.
+* The device half: :func:`insert_slot_cache` and :func:`evict_slot` for
+  the contiguous cache, :func:`insert_paged_cache` and
+  :func:`evict_slot_state` for the paged pool, and
+  :func:`insert_paged_span` and :func:`copy_page_cache` for the prefix
+  cache. They write the batch cache in place and return it (JAX's
+  donated jit returns a new tree), which saves a copy of the whole cache
+  per admission and eviction.
 """
 from __future__ import annotations
 
@@ -99,7 +97,7 @@ def fit_cache_len(cache: dict, t: int) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# paged-cache slot ops (device side; serve.paging owns the page table)
+# slot-granular cache ops (device side)
 # ---------------------------------------------------------------------------
 
 def _pairs(batch_cache: dict, slot_cache: dict):
@@ -108,6 +106,35 @@ def _pairs(batch_cache: dict, slot_cache: dict):
             yield from _pairs(b, slot_cache[k])
         else:
             yield k, b, slot_cache[k]
+
+
+def insert_slot_cache(batch_cache: dict, slot_cache: dict,
+                      slot: int) -> dict:
+    """Write a prefilled single-request cache into batch slot ``slot``,
+    in place; returns ``batch_cache``.
+
+    ``slot_cache`` leaves are (L, 1, T_req, ...) with T_req <= the batch
+    cache's capacity; time positions beyond T_req keep whatever the
+    batch cache held — harmless, because decode masks attention to
+    ``kpos <= pos`` and overwrites position ``pos`` before first use."""
+    for _, b, u in _pairs(batch_cache, slot_cache):
+        b[:, slot, :u.shape[2]] = u[:, 0].to(b.dtype)
+    return batch_cache
+
+
+def evict_slot(batch_cache: dict, slot: int) -> dict:
+    """Zero slot ``slot`` across every cache leaf, in place. Masking alone
+    already keeps a successor from attending stale KV; the zeroing also
+    clears carried state, so nothing of a finished request survives into
+    the slot's next tenant. Returns ``batch_cache``."""
+    for _, b in _leaves(batch_cache):
+        b[:, slot] = 0
+    return batch_cache
+
+
+# ---------------------------------------------------------------------------
+# paged-cache slot ops (device side; serve.paging owns the page table)
+# ---------------------------------------------------------------------------
 
 
 def insert_paged_cache(batch_cache: dict, slot_cache: dict, phys_pages,
@@ -135,6 +162,49 @@ def insert_paged_cache(batch_cache: dict, slot_cache: dict, phys_pages,
             b[:, phys] = pages.to(b.dtype)
         else:
             b[:, slot] = u[:, 0].to(b.dtype)
+    return batch_cache
+
+
+def insert_paged_span(batch_cache: dict, suffix_cache: dict, row,
+                      start: int, length: int, slot: int) -> dict:
+    """Scatter a partially prefilled suffix cache into the paged pool, in
+    place; returns ``batch_cache``.
+
+    The prefix-cache admission path: ``suffix_cache`` time leaves
+    (L, 1, S_pad, ...) span positions ``[start, start + length)`` of the
+    request (start = the divergence point; entries past ``length`` are
+    bucket padding). Each position lands at ``(row[pos // page_size],
+    pos % page_size)`` — token-granular, so a copied divergence page
+    keeps its shared head and gains the suffix tail. Padding positions
+    route to the scratch page (the pool's last page), several of them to
+    the same row of it; nothing reads the scratch page unmasked. State
+    leaves write into batch slot ``slot`` whole."""
+    for key, b, u in _pairs(batch_cache, suffix_cache):
+        if key in _TIME_KEYS and u.ndim >= 3:
+            # b: (L, N_pool, P, ...) pool; u: (L, 1, S_pad, ...) suffix
+            dev = b.device
+            psz, scratch = b.shape[2], b.shape[1] - 1
+            r = torch.as_tensor(np.asarray(row, np.int64), device=dev)
+            idx = torch.arange(u.shape[2], device=dev)
+            posv = start + idx
+            logical = torch.clamp(posv // psz, 0, r.shape[0] - 1)
+            page = torch.where(idx < length, r[logical],
+                               torch.full_like(idx, scratch))
+            b[:, page, posv % psz] = u[:, 0].to(b.dtype)
+        else:
+            b[:, slot] = u[:, 0].to(b.dtype)
+    return batch_cache
+
+
+def copy_page_cache(batch_cache: dict, src: int, dst: int) -> dict:
+    """Copy-on-write support, in place: duplicate physical page ``src``
+    into ``dst`` across every pool (time) leaf. The engine calls this with
+    the pair ``PagePool.cow_if_needed`` returns, BEFORE the first write
+    into the slot's divergence page, so the shared original keeps serving
+    its other readers untouched. Returns ``batch_cache``."""
+    for key, b in _leaves(batch_cache):
+        if key in _TIME_KEYS:
+            b[:, dst] = b[:, src]
     return batch_cache
 
 

@@ -74,3 +74,24 @@ def test_spec_properties():
     s = T.CSBSpec(prune_rate=0.75)
     assert s.keep_fraction == 0.25 and s.compression_ratio == 4.0
     assert s.with_rate(0.5) == T.CSBSpec(prune_rate=0.5)
+
+
+@pytest.mark.parametrize("shape,rate", [((64, 96), 0.5), ((96, 64), 0.9),
+                                        ((128, 256), 0.3),
+                                        ((2, 64, 64), 0.75)])
+def test_bf16_projection_equals_jax_jitted(shape, rate):
+    """bf16 weights: the l2 scores are fp32 sums of unrounded squares,
+    rounded once to bf16, as XLA evaluates the JAX package's jitted
+    ``csb_project`` (the self-draft's projection). Rounding each square
+    to bf16 first, as an eager bf16 evaluation does, picks other rows on
+    ties."""
+    w = np.random.default_rng(sum(shape)).normal(size=shape) / 8
+    wj = jnp.asarray(w, jnp.bfloat16)
+    wt = torch.from_numpy(np.asarray(wj.astype(jnp.float32))).to(
+        torch.bfloat16)
+    sj = J.CSBSpec(bm=32, bn=32, prune_rate=rate)
+    st = T.CSBSpec(bm=32, bn=32, prune_rate=rate)
+    want = np.asarray(J.csb_project(wj, sj).astype(jnp.float32))
+    got = T.csb_project(wt, st)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_array_equal(got.float().numpy(), want)
