@@ -79,6 +79,26 @@ Phases, each of which raises (and the script exits nonzero) on failure:
    there are printed before the script fails. B2's kernel phase also
    holds the kernel on page tables of the prefix trace (replayed on the
    host) in which several slots map the same physical pages.
+8. The MLA + MoE slice, after the gemma-2b phases are freed (peak memory
+   printed): deepseek-v2-236b at full width (d_model 5120, 128 heads,
+   q_lora 1536, kv_lora 512, rope 64, 160 experts top-6 + 2 shared,
+   vocab 102400), its depth cut to what one card holds: 2 layers in fp32
+   (36.0 GB), then 4 in bf16 (33.9 GB), random weights from a seeded
+   generator. Eight greedy requests (prompts 64..1024, powers of two so
+   that bucketed and unbucketed prefill route the same MoE chunks) go
+   through paged serving with B2 (MLA's absorbed query over the latent
+   pool, the rope term as B2's second score product) and with the gather
+   path: B2's launches must equal 2 x n_layers x decode steps; fp32
+   tokens must be equal and the first step's logits within 1e-4 (bf16:
+   agreement printed). B2 is held against its plain version on the
+   inputs the MLA layers give it (fp32 pools also against fp64). In
+   fp32, contiguous serving must give the paged tokens; the prefix cache
+   (eight requests sharing 512 tokens) through B2 must give the gather
+   path's tokens with at least 7 hits, and on/off agreement is printed
+   (a suffix is its own MoE chunk); ``generate`` and speculative serving
+   (rate 0) print their speed and agreement. Per dtype: metrics, a
+   decode-step profile and peak memory; in bf16, B2 timed at the busiest
+   step against its bound and gather + SDPA (backend printed).
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Without CUDA the script
@@ -87,6 +107,7 @@ exits nonzero and prints no result.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -181,6 +202,14 @@ PREFIX_ENGINE = LM_ENGINE.replace(use_kernel=True, prefix_cache=True)
 MIN_PREFIX_HITS = 7
 SPEC_K = 4
 DRAFT_RATES = (0.0, 0.5)
+# the MLA + MoE slice: deepseek-v2-236b at full width. 2 layers are 36.0 GB
+# of fp32 weights, 4 are 33.9 GB in bf16 (+ the 2.1 GB fp32 head); the full
+# 60 are 479 GB. Powers of two, so that bucketed (paged) and unbucketed
+# (contiguous) prefill see the same tokens: MoE capacity is per chunk.
+DS_ARCH = "deepseek-v2-236b"
+DS_LAYERS = {"float32": 2, "bfloat16": 4}
+DS_PROMPT_LENS = (64, 64, 128, 128, 256, 256, 512, 1024)
+DS_MAX_NEW = 32
 
 
 def card_info() -> str:
@@ -444,9 +473,10 @@ def device_kernel_ms(fn, names=("csb_mvm_kernel",), reps=20):
 
 def traced_kernels(fn, names, calls=3) -> list:
     """(name, grid) of every kernel whose name contains one of ``names``
-    that ``calls`` calls of fn launch, read from torch.profiler's trace
-    after two calls of warm-up (a trace of one call alone can miss its
-    first kernel); the grid is None where the trace does not record it."""
+    that ``calls`` calls of fn launch, in launch order, read from
+    torch.profiler's trace after two calls of warm-up (a trace of one
+    call alone can miss its first kernel); the grid is None where the
+    trace does not record it."""
     from torch.profiler import ProfilerActivity, profile, schedule
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "trace.json")
@@ -462,7 +492,7 @@ def traced_kernels(fn, names, calls=3) -> list:
         with open(path) as f:
             events = json.load(f)["traceEvents"]
     out = []
-    for ev in events:
+    for ev in sorted(events, key=lambda e: e.get("ts", 0)):
         if (str(ev.get("cat", "")).lower() == "kernel"
                 and any(nm in ev.get("name", "") for nm in names)):
             grid = ev.get("args", {}).get("grid")
@@ -810,13 +840,13 @@ def paged_kernel_phase(dev) -> float:
     return gemma_err
 
 
-def prefix_requests(vocab: int) -> list:
+def prefix_requests(vocab: int, max_new: int = MAX_NEW) -> list:
     """Eight requests sharing one 512-token prefix, distinct suffixes."""
     rng = np.random.default_rng(SEED + 5)
     prefix = rng.integers(0, vocab, size=PREFIX_LEN)
     return [Request(rid=i, tokens=np.concatenate(
                 [prefix, rng.integers(0, vocab, size=n)]),
-                    max_new_tokens=MAX_NEW, arrival=a)
+                    max_new_tokens=max_new, arrival=a)
             for i, (n, a) in enumerate(zip(SUFFIX_LENS, ARRIVALS))]
 
 
@@ -871,11 +901,12 @@ def shared_page_snapshot(vocab: int):
     return best
 
 
-def lm_requests(vocab: int) -> list:
+def lm_requests(vocab: int, lens=PROMPT_LENS, max_new: int = MAX_NEW
+                ) -> list:
     rng = np.random.default_rng(SEED)
     return [Request(rid=i, tokens=rng.integers(0, vocab, size=n),
-                    max_new_tokens=MAX_NEW, arrival=a)
-            for i, (n, a) in enumerate(zip(PROMPT_LENS, ARRIVALS))]
+                    max_new_tokens=max_new, arrival=a)
+            for i, (n, a) in enumerate(zip(lens, ARRIVALS))]
 
 
 def _tree(t, fn):
@@ -953,13 +984,15 @@ def serve_lm(cfg, params, use_kernel: bool, observe: bool = False):
     return res, launches, peak, tr, reg
 
 
-def first_step(cfg, params, dev):
+def first_step(cfg, params, dev, trace=None):
     """The run's first decode step rebuilt by hand: the four requests
-    that arrive at step 0 prefilled (bucketed, as the engine does) into a
-    fresh pool; returns (cache, tokens, pos, table, head)."""
-    reqs = lm_requests(cfg.vocab)[:LM_ENGINE.n_slots]
+    that arrive at step 0 (of ``trace``, default the LM trace) prefilled
+    (bucketed, as the engine does) into a fresh pool; returns (cache,
+    tokens, pos, table, head)."""
+    trace = trace or lm_requests(cfg.vocab)
+    reqs = trace[:LM_ENGINE.n_slots]
     psz = LM_ENGINE.page_size
-    cache_len = max(n + MAX_NEW for n in PROMPT_LENS)
+    cache_len = max(r.prompt_len + r.max_new_tokens for r in trace)
     max_pages = -(-cache_len // psz)
     pool = PagePool(psz, LM_ENGINE.n_slots * max_pages, LM_ENGINE.n_slots,
                     max_pages, device=dev)
@@ -971,7 +1004,7 @@ def first_step(cfg, params, dev):
     with torch.no_grad():
         for slot, r in enumerate(reqs):
             plen = r.prompt_len
-            pool.reserve(slot, plen + MAX_NEW)
+            pool.reserve(slot, plen + r.max_new_tokens)
             pool.ensure(slot, plen + 1)
             toks = np.pad(r.tokens, (0, bucket_len(plen) - plen))
             lg, c = LM.prefill(params, {"tokens": torch.as_tensor(
@@ -988,10 +1021,10 @@ def first_step(cfg, params, dev):
     return cache, cur, pos, pool.device_table(), head
 
 
-def first_step_logits(cfg, params, dev):
+def first_step_logits(cfg, params, dev, trace=None):
     """First decode step's logits through the kernel and the gather path
     on the same cache; returns (kernel, gather, step state)."""
-    cache, cur, pos, table, head = first_step(cfg, params, dev)
+    cache, cur, pos, table, head = first_step(cfg, params, dev, trace)
     out = []
     with torch.no_grad():
         for use_kernel in (True, False):
@@ -1002,12 +1035,14 @@ def first_step_logits(cfg, params, dev):
     return out[0], out[1], (cache, cur, pos, table, head)
 
 
-def replay_positions(vocab: int) -> list:
-    """Per decode step of the slice's trace, the (pos, active) arrays the
-    engine feeds the step: the scheduler and pool replayed on the host."""
-    reqs = lm_requests(vocab)
+def replay_positions(vocab: int, reqs=None) -> list:
+    """Per decode step of a trace (default the LM trace), the (pos,
+    active) arrays the engine feeds the step: the scheduler and pool
+    replayed on the host."""
+    reqs = reqs or lm_requests(vocab)
     psz, n_slots = LM_ENGINE.page_size, LM_ENGINE.n_slots
-    max_pages = -(-max(n + MAX_NEW for n in PROMPT_LENS) // psz)
+    max_pages = -(-max(r.prompt_len + r.max_new_tokens for r in reqs)
+                  // psz)
     pool = PagePool(psz, n_slots * max_pages, n_slots, max_pages,
                     device="cpu")
     sched = SlotScheduler(n_slots, pool=pool)
@@ -1291,13 +1326,262 @@ def speculative_phase(lm) -> None:
     print("  speculative fp32 tokens equal plain paged serving's")
 
 
-def decode_profile(lm, n=5) -> None:
-    """Where one bf16 decode step's time goes: torch.profiler over ``n``
-    steps of the first decode step's state, device time by kernel and
-    the device's busy share of the wall time."""
+# ---------------------------------------------------------------------------
+# the MLA + MoE slice: deepseek-v2-236b at full width, its depth cut
+# ---------------------------------------------------------------------------
+
+def build_deepseek(dtype: str, dev):
+    """deepseek-v2-236b at full width, cut to the depth one card holds,
+    random weights from a seeded generator in ``dtype``."""
+    full = get_config(DS_ARCH)
+    cfg = dataclasses.replace(full, n_layers=DS_LAYERS[dtype], dtype=dtype)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    params = LM.init_params(cfg, gen, device=dev)
+    n = sum(t.numel() for t in _leaves(params))
+    # param_count() leaves out MLA's two norm scales
+    want = cfg.param_count() + cfg.n_layers * (cfg.q_lora + cfg.kv_lora)
+    if n != want:
+        raise AssertionError(f"{n} parameters, the config counts {want}")
+    size = n * torch.finfo(getattr(torch, dtype)).bits // 8
+    print(f"{DS_ARCH} {dtype}: full width (d_model {cfg.d_model}, "
+          f"{cfg.n_heads} heads, head_dim {cfg.hd}, q_lora {cfg.q_lora}, "
+          f"kv_lora {cfg.kv_lora}, rope {cfg.rope_head_dim}, "
+          f"{cfg.n_experts} experts top-{cfg.top_k} + {cfg.n_shared} shared,"
+          f" moe_dff {cfg.moe_dff}, vocab {cfg.vocab}); depth cut "
+          f"{full.n_layers} -> {cfg.n_layers} layers to fit one card: {n} "
+          f"parameters, {size / 1e9:.2f} GB of weights")
+    return cfg, params
+
+
+def ds_run(what, cfg, params, reqs, engine, observe=False):
+    """One serve run of a deepseek trace, B2's launches held to 2 x
+    layers x single-query paged steps (0 off the kernel path)."""
+    if observe:
+        obs_trace.enable()
+        obs_metrics.enable()
+    paged_attn.LAUNCHES = 0
+    res = serve_continuous(params, cfg, reqs, engine)
+    single = (engine.paged and engine.use_kernel
+              and not engine.speculative)
+    launches = b2_launches(what, cfg, res, use_kernel=single)
+    if single and launches <= 0:
+        raise AssertionError(f"{what}: B2 was never launched")
+    tr = obs_trace.disable() if observe else None
+    reg = obs_metrics.disable() if observe else None
+    for r in reqs:
+        toks = res.tokens.get(r.rid)
+        if toks is None or len(toks) != r.max_new_tokens \
+                or not all(0 <= t < cfg.vocab for t in toks):
+            raise AssertionError(f"{what}, request {r.rid}: bad tokens")
+    st = res.stats
+    print(f"  {what}: {st['decode_steps']} decode steps, {launches} B2 "
+          f"launches, prefill tokens {st['prefill_tokens']}, steady "
+          f"{st['steady_tokens_per_sec']} tok/s, {_per_token_ms(res):.2f} "
+          f"ms per token over {res.wall_s:.2f} s (first calls "
+          f"{st['compile_time_s']} s)")
+    return res, launches, reg
+
+
+def agreement(a: dict, b: dict) -> str:
+    same = sum(x == y for r in a for x, y in zip(a[r], b[r]))
+    return f"{same}/{sum(len(v) for v in a.values())}"
+
+
+def b2_on_the_path(cfg, params, state) -> float:
+    """B2 held against its plain version on the inputs the MLA layers
+    give it in one decode step (each layer's q_c, q_rope and pools),
+    at ``PAGED_TOL``; with fp32 pools also against the exact answer."""
+    from repro_torch.kernels import ops
+    cache, cur, pos, table, head = state
+    calls = []
+    run = ops.paged_attn_decode
+
+    def spy(*args, **kw):
+        calls.append((args, kw))
+        return run(*args, **kw)
+
+    ops.paged_attn_decode = spy
+    try:
+        with torch.no_grad():
+            LM.decode_step_paged(params, {k: v.clone() for k, v in
+                                          cache.items()}, cur, pos, table,
+                                 cfg, use_kernel=True, head=head)
+    finally:
+        ops.paged_attn_decode = run
+    if len(calls) != cfg.n_layers:
+        raise AssertionError(f"{len(calls)} B2 calls in a step of "
+                             f"{cfg.n_layers} layers")
+    worst = 0.0
+    for li, ((q, kp, vp, tab, p), kw) in enumerate(calls):
+        case = dict(q=q, k_pool=kp, v_pool=vp, page_table=tab, pos=p,
+                    window=None, **kw)
+        worst = max(worst, compare_paged(
+            f"{DS_ARCH} {cfg.dtype} layer {li} (MLA path)", case,
+            exact=kp.dtype == torch.float32))
+    print(f"  B2 on the MLA path ({cfg.dtype}, q {calls[0][0][0].dtype}, "
+          f"pools {calls[0][0][1].dtype}, {len(calls)} layers): max abs err "
+          f"vs plain {worst:.3e} (tol {PAGED_TOL[calls[0][0][1].dtype]:g})")
+    return worst
+
+
+def ds_metrics(what, res, reg) -> dict:
+    hist = reg.to_dict(series=False)["histograms"]
+    step, ttft = hist["serve/step/wall_us"], hist["serve/req/ttft_us"]
+    out = {"ms_per_token": _per_token_ms(res),
+           "steady_tokens_per_sec": res.stats["steady_tokens_per_sec"],
+           "step_p50_us": step["p50"], "step_p99_us": step["p99"],
+           "ttft_p99_us": ttft["p99"]}
+    print(f"  {what} metrics: {out['ms_per_token']:.2f} ms per generated "
+          f"token (wall, prefill included), steady "
+          f"{out['steady_tokens_per_sec']} tok/s, decode step wall p50 "
+          f"{step['p50']:.1f} us, p99 {step['p99']:.1f} us over "
+          f"{step['count']} steps; TTFT p50 {ttft['p50']:.1f} us, p99 "
+          f"{ttft['p99']:.1f} us")
+    return out
+
+
+def deepseek_fp32_paths(cfg, params, paged_tokens) -> int:
+    """Contiguous, prefix-cache, ``generate`` and speculative serving of
+    the fp32 model; returns B2's launches over them."""
+    launches = 0
+    reqs = lm_requests(cfg.vocab, DS_PROMPT_LENS, DS_MAX_NEW)
+    res, _, _ = ds_run("contiguous fp32", cfg, params, reqs,
+                       EngineConfig(n_slots=LM_ENGINE.n_slots))
+    same_tokens("contiguous vs paged serving", cfg, params, reqs,
+                res.tokens, paged_tokens)
+    print("  contiguous fp32 tokens equal the paged path's")
+    preq = prefix_requests(cfg.vocab, DS_MAX_NEW)
+    runs = {}
+    for name, engine in (("prefix on, B2", PREFIX_ENGINE),
+                         ("prefix on, gather",
+                          PREFIX_ENGINE.replace(use_kernel=False)),
+                         ("prefix off, B2",
+                          PREFIX_ENGINE.replace(prefix_cache=False))):
+        runs[name], n, _ = ds_run(f"{name} fp32", cfg, params, preq, engine)
+        launches += n
+    on = runs["prefix on, B2"]
+    if on.stats["prefix_hits"] < MIN_PREFIX_HITS:
+        raise AssertionError(f"prefix cache: {on.stats['prefix_hits']} hits")
+    same_tokens("prefix on: B2 vs gather", cfg, params, preq, on.tokens,
+                runs["prefix on, gather"].tokens)
+    print(f"  prefix on fp32: {on.stats['prefix_hits']} hits, "
+          f"{on.stats['shared_pages']} shared pages; B2 tokens equal the "
+          f"gather path's; prefix on vs off agree at "
+          f"{agreement(on.tokens, runs['prefix off, B2'].tokens)} (a suffix "
+          f"is its own MoE chunk, in JAX too: not required equal)")
+    prompts = np.random.default_rng(SEED + 1).integers(
+        0, cfg.vocab, size=GEN_SHAPE)
+    b, s = GEN_SHAPE
+    torch.cuda.synchronize()
+    paged_attn.LAUNCHES = 0
+    t0 = time.perf_counter()
+    out = generate(params, cfg, prompts,
+                   EngineConfig(max_new_tokens=DS_MAX_NEW))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if paged_attn.LAUNCHES:
+        raise AssertionError("generate launched the paged kernel")
+    gen = out[:, s:].cpu().numpy()
+    if out.shape != (b, s + DS_MAX_NEW) or gen.min() < 0 \
+            or gen.max() >= cfg.vocab:
+        raise AssertionError(f"generate: bad output {tuple(out.shape)}")
+    greqs = [Request(rid=i, tokens=prompts[i], max_new_tokens=DS_MAX_NEW)
+             for i in range(b)]
+    twin, n, _ = ds_run("generate's paged twin fp32", cfg, params, greqs,
+                        LM_ENGINE.replace(use_kernel=True))
+    launches += n
+    print(f"  generate fp32: {b} x {s}-token prompts in one MoE chunk, "
+          f"{DS_MAX_NEW} new tokens in {wall:.2f} s wall (prefill "
+          f"included): {1e3 * wall / (b * DS_MAX_NEW):.2f} ms per token, "
+          f"{b * DS_MAX_NEW / wall:.1f} tok/s; agrees with paged serving "
+          f"(each prompt its own chunk) at "
+          f"{agreement({i: gen[i].tolist() for i in range(b)}, twin.tokens)}")
+    engine = LM_ENGINE.replace(use_kernel=True, speculative=True,
+                               spec_k=SPEC_K, draft_prune_rate=0.0)
+    res, _, _ = ds_run("speculative fp32, rate 0", cfg, params, reqs, engine)
+    sp = res.stats["speculative"]
+    print(f"  speculative fp32, spec_k {SPEC_K}, rate 0: {sp['rounds']} "
+          f"rounds, acceptance {sp['acceptance_rate']} ({sp['accepted']}/"
+          f"{sp['proposed']}), {res.stats['tokens_per_sec']} tok/s; agrees "
+          f"with paged serving at {agreement(res.tokens, paged_tokens)} (the "
+          f"verify step is one MoE chunk of {SPEC_K + 1} queries a slot)")
+    return launches
+
+
+def deepseek_phase(dev) -> dict:
+    """deepseek-v2-236b at full width through MLA (B2's rope term) and
+    MoE: fp32 at 2 layers, then bf16 at 4, one after the other."""
+    out = {"launches": 0}
+    for dtype in ("float32", "bfloat16"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        cfg, params = build_deepseek(dtype, dev)
+        reqs = lm_requests(cfg.vocab, DS_PROMPT_LENS, DS_MAX_NEW)
+        print(f"  trace: {len(reqs)} greedy requests, prompts "
+              f"{DS_PROMPT_LENS}, {DS_MAX_NEW} new tokens each, arrivals "
+              f"{ARRIVALS}, {LM_ENGINE.n_slots} slots, page size "
+              f"{LM_ENGINE.page_size}")
+        k, nk, reg = ds_run(f"paged {dtype}, B2", cfg, params, reqs,
+                            LM_ENGINE.replace(use_kernel=True), observe=True)
+        g, _, _ = ds_run(f"paged {dtype}, gather", cfg, params, reqs,
+                         LM_ENGINE)
+        out["launches"] += nk
+        lk, lg, state = first_step_logits(cfg, params, dev, reqs)
+        if not (torch.isfinite(lk).all() and torch.isfinite(lg).all()):
+            raise AssertionError(f"{dtype}: non-finite logits")
+        err = float((lk - lg).abs().max())
+        print(f"  first decode step, {dtype}: logits {tuple(lk.shape)}, "
+              f"B2 vs gather max abs diff {err:.3e}; max |logit| "
+              f"{float(lg.abs().max()):.3f}")
+        if dtype == "float32":
+            same_tokens("deepseek paged: B2 vs gather", cfg, params, reqs,
+                        k.tokens, g.tokens)
+            print("  fp32: B2 tokens equal the gather path's, token for "
+                  "token")
+            if err > LOGIT_TOL[torch.float32]:
+                raise AssertionError(f"fp32 first-step logits differ by "
+                                     f"{err:.3e}")
+        else:
+            print(f"  bf16: B2 and gather tokens agree at "
+                  f"{agreement(k.tokens, g.tokens)} (bf16: printed only)")
+        out[f"b2_err_{dtype}"] = b2_on_the_path(cfg, params, state)
+        out[dtype] = ds_metrics(f"paged {dtype}, B2", k, reg)
+        out[dtype].update(decode_profile(f"{DS_ARCH} {dtype}", cfg, params,
+                                         state))
+        if dtype == "float32":
+            out["launches"] += deepseek_fp32_paths(cfg, params, k.tokens)
+        else:
+            steps = replay_positions(cfg.vocab, reqs)
+            if len(steps) != k.stats["decode_steps"]:
+                raise AssertionError(f"replayed {len(steps)} decode steps, "
+                                     f"the run took "
+                                     f"{k.stats['decode_steps']}")
+            pos_h, active = max(steps,
+                                key=lambda s: int((s[0] + 1)[s[1]].sum()))
+            max_pages = -(-max(r.prompt_len + r.max_new_tokens
+                               for r in reqs) // LM_ENGINE.page_size)
+            out["timing"] = b2_timing(
+                f"{DS_ARCH} MLA", pos_h, active, dev, h=cfg.n_heads, kv=1,
+                d=cfg.kv_lora, d2=cfg.rope_head_dim,
+                scale=1.0 / math.sqrt(cfg.hd + cfg.rope_head_dim),
+                psz=LM_ENGINE.page_size, max_pages=max_pages,
+                q_dtype=torch.float32)
+        print(f"  {DS_ARCH} {dtype}: peak memory "
+              f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+        del params, state, k, g
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def decode_profile(label, cfg, params, state, n=5,
+                   first_design=None) -> dict:
+    """Where one decode step's time goes: torch.profiler over ``n`` steps
+    of a first decode step's state (kernel path), device time by kernel
+    and the device's busy share of the wall time."""
     from torch.profiler import ProfilerActivity, profile
-    cfg, params = lm["cfg"], lm["params"]
-    cache, cur, pos, table, head = lm["step_state"]
+    cache, cur, pos, table, head = state
 
     def run():
         for _ in range(n):
@@ -1318,51 +1602,85 @@ def decode_profile(lm, n=5) -> None:
     kernels = [ev for ev in prof.key_averages()
                if ev.device_type == torch.autograd.DeviceType.CUDA]
     busy_us = sum(ev.self_device_time_total for ev in kernels) / n
+    per_step = sum(ev.count for ev in kernels) / n
     b2 = sum(ev.count for ev in kernels
              if any(nm in ev.key for nm in B2_NAMES)) / n
-    print(f"decode-step profile (bf16, kernel path, {n} steps at the first "
-          f"step's positions, torch.profiler): wall {wall_us:.1f} us/step "
-          f"profiled, {plain_us:.1f} us/step unprofiled; device busy "
-          f"{busy_us:.1f} us/step ({100 * busy_us / wall_us:.1f}% of the "
-          f"profiled wall, {100 * busy_us / plain_us:.1f}% of the "
-          f"unprofiled), {sum(ev.count for ev in kernels) / n:.0f} "
-          f"kernels/step ({FIRST_DESIGN_KERNELS_PER_STEP} with the one-launch "
-          f"paged-attention kernel of the first design), {b2:.0f} of them "
-          f"paged-attention kernels")
+    first = ("" if first_design is None else
+             f" ({first_design} with the one-launch paged-attention kernel "
+             f"of the first design)")
+    print(f"decode-step profile ({label}, kernel path, {n} steps at the "
+          f"first step's positions, torch.profiler): wall {wall_us:.1f} "
+          f"us/step profiled, {plain_us:.1f} us/step unprofiled; device "
+          f"busy {busy_us:.1f} us/step ({100 * busy_us / wall_us:.1f}% of "
+          f"the profiled wall, {100 * busy_us / plain_us:.1f}% of the "
+          f"unprofiled), {per_step:.0f} kernels/step{first}, {b2:.0f} of "
+          f"them paged-attention kernels")
     for ev in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
         print(f"  {ev.self_device_time_total / n:8.1f} us/step "
               f"{ev.count // n:4d}x  {ev.key[:90]}")
+    return {"busy_us": busy_us, "wall_us": plain_us,
+            "busy_share": busy_us / plain_us, "kernels_per_step": per_step}
 
 
-def paged_timing_phase(lm, dev) -> dict:
-    """B2 at the busiest decode step of the slice's trace (bf16, one
-    layer's pools): kernel, plain version, SDPA on the gathered K/V (the
-    library yardstick; the gather timed apart) and the bound."""
-    cfg = lm["cfg"]
-    pos_h, active = max(lm["steps"],
-                        key=lambda s: int((s[0] + 1)[s[1]].sum()))
+def _sdpa_backend(fn) -> str:
+    """Which SDPA backend ``fn`` ran, from the kernel names the profiler
+    records."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = " ".join(ev.key.lower() for ev in prof.key_averages()
+                     if ev.device_type == torch.autograd.DeviceType.CUDA)
+    for key, backend in (("flash", "flash"), ("cudnn", "cudnn"),
+                         ("fmha", "efficient"), ("efficient", "efficient"),
+                         ("mem_eff", "efficient")):
+        if key in names:
+            return backend
+    return "math (no fused attention kernel in the trace)"
+
+
+def b2_timing(label, pos_h, active, dev, *, h, kv, d, psz, max_pages,
+              dv=None, d2=0, scale=None, q_dtype=torch.bfloat16,
+              pool_dtype=torch.bfloat16) -> dict:
+    """B2 at one decode step's positions (one layer's pools): kernel,
+    plain version, SDPA on the gathered K/V (the library yardstick; the
+    gather timed apart) and the bound. With ``d2`` (MLA) one latent pool
+    is both K and V (D = Dv) and a second pool holds the rope keys; SDPA
+    then takes K = [latent | rope], V = latent."""
     rng = np.random.default_rng(SEED + 4)
-    psz = LM_ENGINE.page_size
-    max_pages = -(-max(n + MAX_NEW for n in PROMPT_LENS) // psz)
+    dv = dv or d
     tab, n_pages = _slot_table(rng, pos_h.tolist(), psz, max_pages)
-    b, h, kv, d = len(pos_h), cfg.n_heads, cfg.n_kv, cfg.hd
-    bf16 = torch.bfloat16
-    q = _rand(rng, (b, h, d), dev).to(bf16)
-    kp = _rand(rng, (n_pages, psz, kv, d), dev).to(bf16)
-    vp = _rand(rng, (n_pages, psz, kv, d), dev).to(bf16)
+    b = len(pos_h)
+    q = _rand(rng, (b, h, d), dev).to(q_dtype)
+    kp = _rand(rng, (n_pages, psz, kv, d), dev).to(pool_dtype)
+    vp = kp if d2 else _rand(rng, (n_pages, psz, kv, dv), dev).to(
+        pool_dtype)
+    extra = {}
+    if d2:
+        extra = dict(q2=_rand(rng, (b, h, d2), dev).to(q_dtype),
+                     k2_pool=_rand(rng, (n_pages, psz, kv, d2), dev).to(
+                         pool_dtype))
     table = torch.from_numpy(tab).to(dev)
     pos = torch.from_numpy(pos_h.astype(np.int32)).to(dev)
-    scale = 1.0 / math.sqrt(d)
+    scale = scale or 1.0 / math.sqrt(d)
     t = max_pages * psz
     kpos = torch.arange(t, device=dev)
     mask = (kpos[None, :] <= pos[:, None].long())[:, None, None, :]
+    qs = q[:, :, None, :].to(pool_dtype)
+    if d2:
+        qs = torch.cat([qs, extra["q2"][:, :, None, :].to(pool_dtype)], -1)
 
     def gather():
-        return (kp[table.long()].reshape(b, t, kv, d).transpose(1, 2),
-                vp[table.long()].reshape(b, t, kv, d).transpose(1, 2))
+        k = kp[table.long()].reshape(b, t, kv, d)
+        if d2:
+            k2 = extra["k2_pool"][table.long()].reshape(b, t, kv, d2)
+            return torch.cat([k, k2], -1).transpose(1, 2), k.transpose(1, 2)
+        return (k.transpose(1, 2),
+                vp[table.long()].reshape(b, t, kv, dv).transpose(1, 2))
 
     kg, vg = gather()
-    qs = q[:, :, None, :]
 
     def library():
         return F.scaled_dot_product_attention(
@@ -1370,12 +1688,14 @@ def paged_timing_phase(lm, dev) -> dict:
 
     def kernel():
         return paged_attn.paged_attn_cuda(q, kp, vp, table, pos,
-                                          scale=scale)
+                                          scale=scale, **extra)
 
     def plain_version():
-        return paged_attn_ref(q, kp, vp, table, pos, scale=scale)
+        return paged_attn_ref(q, kp, vp, table, pos, scale=scale, **extra)
 
     lib_err = float((library()[:, :, 0].float() - kernel()).abs().max())
+    plain_err = float((plain_version() - kernel()).abs().max())
+    backend = _sdpa_backend(library)
     ms = median_ms(kernel)
     plain_ms = median_ms(plain_version)
     library_ms = median_ms(library)
@@ -1385,15 +1705,27 @@ def paged_timing_phase(lm, dev) -> dict:
     kernel_graph_ms, library_graph_ms = graph_ms(kernel), graph_ms(library)
     gather_sdpa_graph_ms = graph_ms(lambda: F.scaled_dot_product_attention(
         qs, *gather(), attn_mask=mask, scale=scale, enable_gqa=True))
-    hpc, ps, splits = paged_attn.plan(b, h // kv, kv, d, 0, psz, max_pages,
+    hpc, ps, splits = paged_attn.plan(b, h // kv, kv, d, d2, psz, max_pages,
                                       paged_attn.sm_count(dev.index))
     planned = (splits, kv * (h // kv // hpc), b)
-    traced = traced_kernels(kernel, B2_NAMES, calls=3)
-    per_call = len(traced) / 3
-    if per_call != paged_attn.KERNELS_PER_CALL:
+    traced = traced_kernels(kernel, B2_NAMES, calls=5)
+    # the profiler can miss kernels at the edges of its window (at MLA's
+    # shape it missed a whole call once and a call's scores kernel once),
+    # so drop what precedes the first scores kernel and a partial call at
+    # the end: the rest must be whole calls, each the scores kernel then
+    # the PV kernel and nothing else
+    first = next((i for i, (name, _) in enumerate(traced)
+                  if B2_NAMES[0] in name), len(traced))
+    calls = (len(traced) - first) // len(B2_NAMES)
+    seq = traced[first:first + calls * len(B2_NAMES)]
+    per_call = len(seq) / calls if calls else 0
+    if not calls or any(B2_NAMES[i % len(B2_NAMES)] not in name
+                        for i, (name, _) in enumerate(seq)) \
+            or per_call != paged_attn.KERNELS_PER_CALL:
         raise AssertionError(f"a call launched {per_call} kernels, the "
                              f"launch count adds "
                              f"{paged_attn.KERNELS_PER_CALL}: {traced}")
+    traced = seq
     grids = sorted({g for _, g in traced}, key=str)
     ctas = None
     if None not in grids:
@@ -1401,32 +1733,40 @@ def paged_timing_phase(lm, dev) -> dict:
             raise AssertionError(f"traced grids {grids}, planned {planned}")
         ctas = math.prod(planned)
     live = int((pos_h + 1).sum())
-    kv_bytes = live * kv * 2 * d * BF16_BYTES
-    io_bytes = (q.numel() * BF16_BYTES + b * h * d * 4 + table.numel() * 4
-                + pos.numel() * 4)
-    flops = 2 * live * h * 2 * d
+    pool_bytes = kp.element_size()
+    # the live rows of each pool, read once (MLA's latent is K and V)
+    kv_bytes = live * kv * (d + d2 + (0 if d2 else dv)) * pool_bytes
+    io_bytes = (q.numel() * q.element_size() + b * h * dv * 4
+                + table.numel() * 4 + pos.numel() * 4
+                + (extra["q2"].numel() * q.element_size() if d2 else 0))
+    flops = 2 * live * h * (d + d2 + dv)
     bytes_s = (kv_bytes + io_bytes) / HBM_BYTES_PER_S
-    ops_s = flops / BF16_FLOPS
+    # the products' operands are the pool's type (q is rounded to it)
+    ops_s = flops / (FP32_FLOPS if pool_dtype == torch.float32
+                     else BF16_FLOPS)
     bound_ms = max(bytes_s, ops_s) * 1e3
-    print(f"paged timing, one layer at the busiest decode step (bf16, "
-          f"pos {pos_h.tolist()}, active {active.tolist()}, {live} live "
-          f"keys; median of 50, CUDA events): kernel {ms:.4f} ms (device "
-          f"time {'not measured' if dev_ms is None else f'{dev_ms:.4f} ms'}"
-          f" from torch.profiler), plain {plain_ms:.4f} ms, library SDPA "
-          f"{library_ms:.4f} ms (device time {_ms(library_dev_ms)}) on "
-          f"pre-gathered K/V (the gather alone "
+    print(f"paged timing, {label}, one layer at the busiest decode step "
+          f"(pools {pool_dtype}, q {q_dtype}, H {h}, KV {kv}, D {d}, Dv {dv}"
+          f", D2 {d2}; pos {pos_h.tolist()}, active {active.tolist()}, "
+          f"{live} live keys; median of 50, CUDA events): kernel {ms:.4f} "
+          f"ms (device time "
+          f"{'not measured' if dev_ms is None else f'{dev_ms:.4f} ms'}"
+          f" from torch.profiler), plain {plain_ms:.4f} ms (kernel vs "
+          f"plain max abs err {plain_err:.3e}), library SDPA "
+          f"{library_ms:.4f} ms ({backend} backend; device time "
+          f"{_ms(library_dev_ms)}) on pre-gathered K/V (the gather alone "
           f"{gather_ms:.4f} ms; SDPA vs kernel max abs diff "
           f"{lib_err:.3e}); replayed from a CUDA graph (no host): kernel "
           f"{kernel_graph_ms:.4f} ms, SDPA {library_graph_ms:.4f} ms, gather "
           f"+ SDPA {gather_sdpa_graph_ms:.4f} ms; bound {bound_ms:.5f} ms "
-          f"({kv_bytes} live K/V "
-          f"bytes + {io_bytes} q/out/table/pos bytes; {flops} flops); "
+          f"({kv_bytes} live pool "
+          f"bytes + {io_bytes} q/out/table/pos bytes; {flops} flops; bound "
+          f"by {'bytes' if bytes_s >= ops_s else 'operations'}); "
           f"planned grid {splits} splits of {ps} pages x {planned[1]} "
-          f"(group, head chunk) x {b} slots; traced: {per_call:g} kernels per "
-          f"call, grids {grids} = "
-          f"{'not in the trace' if ctas is None else f'{ctas} CTAs'}; "
-          f"{cfg.n_layers} calls = {per_call * cfg.n_layers:g} kernels per "
-          f"decode step")
+          f"(group, head chunk) x {b} slots; traced ({calls} whole calls "
+          f"of 5 in the trace): {per_call:g} kernels per call, grids "
+          f"{grids} = "
+          f"{'not in the trace' if ctas is None else f'{ctas} CTAs'}")
     for key, t_ms in each.items():
         print(f"  device time {t_ms:.4f} ms  {key[:90]}")
     return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
@@ -1436,7 +1776,25 @@ def paged_timing_phase(lm, dev) -> dict:
             "graph_ms": kernel_graph_ms, "library_graph_ms": library_graph_ms,
             "gather_sdpa_graph_ms": gather_sdpa_graph_ms,
             "gather_ms": gather_ms, "live_kv_bytes": kv_bytes, "ctas": ctas,
-            "kernels_per_call": per_call}
+            "kernels_per_call": per_call, "plain_err": plain_err,
+            "sdpa_backend": backend}
+
+
+def paged_timing_phase(lm, dev) -> dict:
+    """B2 at the busiest decode step of the LM trace (bf16, gemma-2b's
+    head shape)."""
+    cfg = lm["cfg"]
+    pos_h, active = max(lm["steps"],
+                        key=lambda s: int((s[0] + 1)[s[1]].sum()))
+    max_pages = -(-max(n + MAX_NEW for n in PROMPT_LENS)
+                  // LM_ENGINE.page_size)
+    out = b2_timing("gemma-2b", pos_h, active, dev, h=cfg.n_heads,
+                    kv=cfg.n_kv, d=cfg.hd, psz=LM_ENGINE.page_size,
+                    max_pages=max_pages)
+    print(f"  {cfg.n_layers} calls = "
+          f"{out['kernels_per_call'] * cfg.n_layers:g} kernels per decode "
+          f"step")
+    return out
 
 
 def main() -> int:
@@ -1467,12 +1825,23 @@ def main() -> int:
     phase("SR1 frame profile", frame_profile, layers, frames)
     paged_err = phase("B2 kernel", paged_kernel_phase, dev)
     lm = phase("LM slice", lm_slice_phase, dev)
-    phase("LM decode profile", decode_profile, lm)
+    phase("LM decode profile", decode_profile, "gemma-2b bf16", lm["cfg"],
+          lm["params"], lm["step_state"], 5, FIRST_DESIGN_KERNELS_PER_STEP)
     pt = phase("B2 timing", paged_timing_phase, lm, dev)
+    lm_launches, lm_steady, lm_p99 = (lm["launches"],
+                                      lm["steady_tokens_per_sec"],
+                                      lm["step_p99_us"])
     gen_launches = phase("generate", generate_phase, lm, dev)
     phase("contiguous serving", contiguous_phase, lm)
     px = phase("prefix cache", prefix_phase, lm)
     phase("speculative serving", speculative_phase, lm)
+    del lm
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"gemma-2b phases freed: peak memory so far "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB, now allocated "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB")
+    ds = phase("deepseek", deepseek_phase, dev)
     print(f"[total {time.perf_counter() - t_start:.1f} s]")
     print(json.dumps({"kernels": [{
         **KERNEL, "launches": sl["launches"], "max_abs_err": max_err,
@@ -1484,7 +1853,8 @@ def main() -> int:
         "us_per_frame": sl["us_per_frame"], "frame_p99_us": sl["p99_us"],
     }, {
         **PAGED_KERNEL,
-        "launches": lm["launches"] + gen_launches + px["launches"],
+        "launches": (lm_launches + gen_launches + px["launches"]
+                     + ds["launches"]),
         "max_abs_err": paged_err, "ms": pt["ms"],
         "plain_ms": pt["plain_ms"], "bound_ms": pt["bound_ms"],
         "bound_by": pt["bound_by"], "library_ms": pt["library_ms"],
@@ -1493,8 +1863,16 @@ def main() -> int:
         "graph_ms": pt["graph_ms"], "library_graph_ms": pt["library_graph_ms"],
         "gather_sdpa_graph_ms": pt["gather_sdpa_graph_ms"],
         "kernels_per_call": pt["kernels_per_call"], "ctas": pt["ctas"],
-        "steady_tokens_per_sec": lm["steady_tokens_per_sec"],
-        "step_p99_us": lm["step_p99_us"],
+        "steady_tokens_per_sec": lm_steady,
+        "step_p99_us": lm_p99,
+        "mla_max_abs_err": max(ds["b2_err_float32"],
+                               ds["b2_err_bfloat16"]),
+        **{f"mla_{k}": ds["timing"][k] for k in (
+            "ms", "device_ms", "graph_ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms", "library_device_ms",
+            "library_graph_ms", "gather_sdpa_graph_ms", "sdpa_backend",
+            "ctas")},
+        "deepseek": {d: ds[d] for d in ("float32", "bfloat16")},
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,8 +1,9 @@
 """repro_torch.models — the decoder LM of the serve paths.
 
 ``config`` is a copy of the JAX package's configuration; ``layers`` and
-``lm`` port the attention decoder's prefill, partial prefill and decode
-step through the contiguous cache and the paged pool.
+``lm`` port the decoder's prefill, partial prefill and decode step
+through the contiguous cache and the paged pool, for the attention and
+MLA mixers and the dense and MoE FFNs.
 """
 from . import layers
 from .config import SHAPES, ModelConfig, ShapeConfig, reduced

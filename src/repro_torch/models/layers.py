@@ -1,8 +1,10 @@
-"""Layer primitives of the decoder LM, the subset the paged serve path runs.
+"""Layer primitives of the decoder LM, the subset the serve paths run.
 
 A port of ``repro.models.layers``: dense projections, RMSNorm, RoPE,
 blockwise (flash-style) causal attention for prefill, the GQA attention
-sublayer with its paged decode, and the gated MLP. Each function keeps
+sublayer and DeepSeek's multi-head latent attention (MLA) with their
+contiguous and paged decode, the gated MLP and the capacity-dropped
+mixture of experts (MoE). Each function keeps
 the JAX package's layouts and numerics: parameters in ``cfg.dtype``,
 matmul accumulation, softmax and norms in fp32, ``-1e30`` (not -inf)
 for masked scores. Where JAX asks for ``preferred_element_type=F32`` on
@@ -14,7 +16,7 @@ The JAX package pins layouts with ``shard(...)``/``replicated()`` to work
 around XLA:CPU SPMD miscompiles; the port has no mesh and drops them.
 The cache primitives write in place (``_cache_write``, ``paged_write``),
 where JAX returns a new array: it saves a copy of the whole cache per
-layer and step. MLA, SSD, hybrid and MoE layers wait for later slices.
+layer and step. SSD and hybrid layers wait for a later slice.
 """
 from __future__ import annotations
 
@@ -289,6 +291,13 @@ def _cache_write(buf: torch.Tensor, new: torch.Tensor, pos) -> torch.Tensor:
     return buf
 
 
+def _softmax(sc: torch.Tensor) -> torch.Tensor:
+    """Softmax over the last axis in jax.nn.softmax's own form:
+    exp(x - max) / sum."""
+    e = torch.exp(sc - torch.amax(sc, dim=-1, keepdim=True))
+    return e / torch.sum(e, dim=-1, keepdim=True)
+
+
 def _attend_cache(q, kc, vc, row_pos, cfg: ModelConfig):
     """Decode attention of the s query tokens ``q`` (B, s, H, D) against
     a per-slot cache (B, T, KV, D), with the causal decode mask at
@@ -302,9 +311,7 @@ def _attend_cache(q, kc, vc, row_pos, cfg: ModelConfig):
     mask = _decode_mask(t, row_pos, s, cfg.window)      # (1|B, S, T)
     sc = torch.where(mask[:, None, None, :, :], sc,
                      torch.tensor(-1e30, dtype=F32, device=sc.device))
-    # jax.nn.softmax's own form: exp(x - max) / sum
-    e = torch.exp(sc - torch.amax(sc, dim=-1, keepdim=True))
-    pattn = e / torch.sum(e, dim=-1, keepdim=True)
+    pattn = _softmax(sc)
     o = torch.einsum("bgrqk,bkgd->bqgrd", pattn.to(vc.dtype).to(F32),
                      vc.to(F32))
     return o.reshape(b, s, -1)
@@ -408,6 +415,175 @@ def attn_paged_cache_init(cfg: ModelConfig, n_pages: int, page_size: int,
 
 
 # ---------------------------------------------------------------------------
+# MLA (DeepSeek-V2 multi-head latent attention)
+# ---------------------------------------------------------------------------
+
+def mla_init(gen: torch.Generator, cfg: ModelConfig, device) -> dict:
+    dt = _dtype(cfg)
+    d, hd, nh = cfg.d_model, cfg.hd, cfg.n_heads
+    rd, kvl, ql = cfg.rope_head_dim, cfg.kv_lora, cfg.q_lora
+    return {
+        "wq_a": dense_init(gen, d, ql, dt, device),             # q down
+        "q_norm": rmsnorm_init(ql, dt, device),
+        "wq_b": dense_init(gen, ql, nh * (hd + rd), dt, device),  # q up
+        "wkv_a": dense_init(gen, d, kvl + rd, dt, device),  # kv down + k_rope
+        "kv_norm": rmsnorm_init(kvl, dt, device),
+        "wk_b": dense_init(gen, kvl, nh * hd, dt, device),      # k up (nope)
+        "wv_b": dense_init(gen, kvl, nh * hd, dt, device),      # v up
+        "wo": dense_init(gen, nh * hd, d, dt, device),
+    }
+
+
+def _mla_qkv(p, x, cfg: ModelConfig, pos):
+    """(q_nope (B,S,H,hd), q_rope (B,S,H,rd), c_kv (B,S,kvl),
+    k_rope (B,S,1,rd)), rope applied at ``pos``."""
+    b, s, _ = x.shape
+    hd, nh, rd = cfg.hd, cfg.n_heads, cfg.rope_head_dim
+    qa = rmsnorm(dense(x, p["wq_a"]), p["q_norm"])
+    qb = dense(qa, p["wq_b"]).reshape(b, s, nh, hd + rd)
+    q_nope = qb[..., :hd]
+    q_rope = apply_rope(qb[..., hd:], pos, cfg.rope_theta)
+    kva = dense(x, p["wkv_a"])
+    c_kv = rmsnorm(kva[..., :cfg.kv_lora], p["kv_norm"])
+    k_rope = apply_rope(kva[..., cfg.kv_lora:].reshape(b, s, 1, rd), pos,
+                        cfg.rope_theta)
+    return q_nope, q_rope, c_kv, k_rope
+
+
+def _mla_heads(p, c_kv, k_rope, cfg: ModelConfig):
+    """The per-head keys [k_nope | k_rope] (B, S, H, hd + rd) and values
+    (B, S, H, hd) up-projected from the latent ``c_kv`` (B, S, kvl);
+    ``k_rope`` (B, S, rd) is shared by every head."""
+    b, s = c_kv.shape[:2]
+    nh, hd, rd = cfg.n_heads, cfg.hd, cfg.rope_head_dim
+    k_nope = dense(c_kv, p["wk_b"]).reshape(b, s, nh, hd)
+    v = dense(c_kv, p["wv_b"]).reshape(b, s, nh, hd)
+    k = torch.cat([k_nope, k_rope[:, :, None, :].expand(b, s, nh, rd)], -1)
+    return k, v
+
+
+def mla_prefill(p, x, cfg: ModelConfig, pos, *, window=None):
+    """Full causal MLA over x (B, S, d) at positions ``pos``; returns the
+    sublayer output and the compressed cache {c_kv (B,S,kvl),
+    k_rope (B,S,rd)} in x's dtype (the prefill path of the LM)."""
+    b, s, _ = x.shape
+    q_nope, q_rope, c_kv, k_rope = _mla_qkv(p, x, cfg, pos)
+    k, v = _mla_heads(p, c_kv, k_rope[:, :, 0], cfg)
+    o = blockwise_attention(torch.cat([q_nope, q_rope], -1), k, v,
+                            causal=True, window=window)
+    return (dense(o.reshape(b, s, -1), p["wo"]),
+            {"c_kv": c_kv, "k_rope": k_rope[:, :, 0]})
+
+
+def mla_apply(p, x, cfg: ModelConfig, *, window=None):
+    """Full (prefill/train) MLA self-attention."""
+    pos = torch.arange(x.shape[1], device=x.device)
+    return mla_prefill(p, x, cfg, pos, window=window)[0]
+
+
+def _absorbed_q(p, q_nope, cfg: ModelConfig):
+    """The MLA decode trick: q_nope . (W_kb c) = (W_kb^T q_nope) . c, so
+    q_c (B, s, H, kvl) scores the latent cache directly; fp32, as JAX's
+    ``preferred_element_type=F32`` leaves it."""
+    wkb = p["wk_b"].reshape(cfg.kv_lora, cfg.n_heads, cfg.hd)
+    return torch.einsum("bqhd,lhd->bqhl", q_nope.to(wkb.dtype).to(F32),
+                        wkb.to(F32))
+
+
+def _mla_out(p, o_c, x, cfg: ModelConfig):
+    """Absorb the v up-projection into the latent output o_c
+    (B, s, H, kvl) fp32, then the out-projection."""
+    b, s = o_c.shape[:2]
+    wvb = p["wv_b"].reshape(cfg.kv_lora, cfg.n_heads, cfg.hd)
+    o = torch.einsum("bqhl,lhd->bqhd", o_c.to(wvb.dtype).to(F32),
+                     wvb.to(F32))
+    return dense(o.reshape(b, s, -1).to(x.dtype), p["wo"])
+
+
+def _mla_attend(p, x, q_nope, q_rope, cc, cr, row_pos, cfg: ModelConfig):
+    """Absorbed-q decode attention over per-slot latent caches cc
+    (B, T, kvl) and cr (B, T, rd) with the causal decode mask at
+    ``row_pos``: the gather branch's math (q_c rounded to the cache's
+    dtype before the score product, as JAX rounds it)."""
+    q_c = _absorbed_q(p, q_nope, cfg)
+    s_c = torch.einsum("bqhl,bkl->bhqk", q_c.to(cc.dtype).to(F32),
+                       cc.to(F32))
+    s_r = torch.einsum("bqhd,bkd->bhqk", q_rope.to(cr.dtype).to(F32),
+                       cr.to(F32))
+    sc = (s_c + s_r) / math.sqrt(cfg.hd + cfg.rope_head_dim)
+    mask = _decode_mask(cc.shape[1], row_pos, q_nope.shape[1], None)
+    sc = torch.where(mask[:, None, :, :], sc,
+                     torch.tensor(-1e30, dtype=F32, device=sc.device))
+    pattn = _softmax(sc)
+    o_c = torch.einsum("bhqk,bkl->bqhl", pattn.to(cc.dtype).to(F32),
+                       cc.to(F32))
+    return _mla_out(p, o_c, x, cfg)
+
+
+def mla_decode(p, x, cfg: ModelConfig, cache, pos):
+    """Decode with the *compressed* contiguous cache {c_kv (B,T,kvl),
+    k_rope (B,T,rd)}, written in place; ``pos`` scalar or (B,)."""
+    qpos, row_pos = _decode_pos(pos, x.shape[1], x.device)
+    q_nope, q_rope, c_kv, k_rope = _mla_qkv(p, x, cfg, qpos)
+    cc = _cache_write(cache["c_kv"], c_kv, pos)
+    cr = _cache_write(cache["k_rope"], k_rope[:, :, 0], pos)
+    return (_mla_attend(p, x, q_nope, q_rope, cc, cr, row_pos, cfg),
+            {"c_kv": cc, "k_rope": cr})
+
+
+def mla_cache_init(cfg: ModelConfig, batch: int, t: int, dtype,
+                   device) -> dict:
+    return {"c_kv": torch.zeros((batch, t, cfg.kv_lora), dtype=dtype,
+                                device=device),
+            "k_rope": torch.zeros((batch, t, cfg.rope_head_dim),
+                                  dtype=dtype, device=device)}
+
+
+def mla_decode_paged(p, x, cfg: ModelConfig, cache, pos, page_table,
+                     use_kernel: bool = False):
+    """MLA decode through the paged compressed-KV pools {c_kv (N,P,kvl),
+    k_rope (N,P,rd)}, written in place.
+
+    ``use_kernel=True`` (single-query steps) runs the absorbed-q
+    attention through the paged-attention kernel: one KV group, the
+    latent pool as both key and value (D = Dv = kvl), the rope term as
+    the kernel's second score product (q2 = q_rope, k2_pool = k_rope),
+    q_c in fp32 as JAX passes it. The gather branch rounds q_c to the
+    pool's dtype before its score product, as JAX's does; in bf16 the
+    two branches round differently in JAX too."""
+    b, s, _ = x.shape
+    qpos, row_pos = _decode_pos(pos, s, x.device)
+    q_nope, q_rope, c_kv, k_rope = _mla_qkv(p, x, cfg, qpos)
+    cc_pool = paged_write(cache["c_kv"], c_kv, pos, page_table)
+    cr_pool = paged_write(cache["k_rope"], k_rope[:, :, 0], pos, page_table)
+    new = {"c_kv": cc_pool, "k_rope": cr_pool}
+    if use_kernel and s == 1:
+        from repro_torch.kernels.ops import paged_attn_decode
+        q_c = _absorbed_q(p, q_nope, cfg)
+        latent = cc_pool.unsqueeze(2)          # (N, P, KV=1, kvl)
+        # the kernel takes q and q2 in one dtype: bf16 q_rope is exact in
+        # fp32, and both are rounded to the pool's dtype inside
+        o_c = paged_attn_decode(
+            q_c[:, 0].contiguous(), latent, latent, page_table, row_pos,
+            scale=1.0 / math.sqrt(cfg.hd + cfg.rope_head_dim),
+            q2=q_rope[:, 0].to(F32).contiguous(),
+            k2_pool=cr_pool.unsqueeze(2))
+        return _mla_out(p, o_c[:, None], x, cfg), new
+    return (_mla_attend(p, x, q_nope, q_rope, paged_gather(cc_pool,
+                                                           page_table),
+                        paged_gather(cr_pool, page_table), row_pos, cfg),
+            new)
+
+
+def mla_paged_cache_init(cfg: ModelConfig, n_pages: int, page_size: int,
+                         dtype, device) -> dict:
+    return {"c_kv": torch.zeros((n_pages, page_size, cfg.kv_lora),
+                                dtype=dtype, device=device),
+            "k_rope": torch.zeros((n_pages, page_size, cfg.rope_head_dim),
+                                  dtype=dtype, device=device)}
+
+
+# ---------------------------------------------------------------------------
 # Gated MLPs
 # ---------------------------------------------------------------------------
 
@@ -428,3 +604,104 @@ def mlp_apply(p, x, cfg: ModelConfig):
     act = (F.gelu(g, approximate="tanh") if cfg.ffn == "geglu"
            else F.silu(g))
     return dense(act * dense(x, p["w_up"]), p["w_down"])
+
+
+# ---------------------------------------------------------------------------
+# MoE (top-k, shared experts, capacity-dropped chunked dispatch)
+# ---------------------------------------------------------------------------
+
+def moe_init(gen: torch.Generator, cfg: ModelConfig, device) -> dict:
+    """Router in fp32 whatever ``cfg.dtype``; expert weights stacked
+    (E, d, ff) and (E, ff, d); ``n_shared`` experts as one MLP of width
+    ``n_shared * moe_dff``."""
+    dt = _dtype(cfg)
+    d, e, ff = cfg.d_model, cfg.n_experts, cfg.moe_dff
+
+    def stack(rows, cols):
+        w = torch.randn((e, rows, cols), generator=gen, device=device)
+        return w.mul_(1.0 / math.sqrt(rows)).to(dt)
+
+    p = {"router": dense_init(gen, d, e, F32, device),
+         "w_gate": stack(d, ff), "w_up": stack(d, ff),
+         "w_down": stack(ff, d)}
+    if cfg.n_shared:
+        p["shared"] = mlp_init(gen, cfg, device, cfg.n_shared * cfg.moe_dff)
+    return p
+
+
+def _top_k(probs: torch.Tensor, k: int):
+    """``jax.lax.top_k``: the k largest along the last axis, the lower
+    index first among equal values (``torch.topk`` promises no order on
+    ties)."""
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Batched ``a @ b`` with JAX's ``preferred_element_type=F32``: the
+    products summed in fp32 and returned in fp32. Low-precision operands
+    go to fp32 first on the CPU (bf16 products are exact there); on the
+    card cuBLAS takes them as they are and writes fp32, so a decode step
+    reads each expert weight once, in its own dtype."""
+    if a.dtype == F32 and b.dtype == F32:
+        return torch.matmul(a, b)
+    if a.is_cuda:
+        return torch.bmm(a, b, out_dtype=F32)
+    return torch.matmul(a.to(F32), b.to(F32))
+
+
+def moe_apply(p, x, cfg: ModelConfig):
+    """x: (B, S, d). GShard-style dispatch, as the JAX package does it:
+    the B*S tokens split into chunks of ``min(moe_chunk, B*S)`` (the last
+    one zero-padded), each expert takes at most ``cap`` assignments per
+    chunk in token-major, k-minor order and drops the rest, and every
+    expert multiplies its full capacity (empty slots included). So a
+    token's output depends on the tokens it is batched with, in JAX as
+    here. bf16 rounds where JAX rounds: the dispatch and combine weights
+    and the gate values in the compute dtype, each product summed in fp32
+    and cast back, silu on the fp32 gate product."""
+    b, s, d = x.shape
+    e, k = cfg.n_experts, cfg.top_k
+    xt = x.reshape(b * s, d)
+    t = xt.shape[0]
+    chunk = min(cfg.moe_chunk, t)
+    tp = -(-t // chunk) * chunk
+    xt = F.pad(xt, (0, 0, 0, tp - t))
+    g = tp // chunk
+    cap = max(int(chunk * k / e * cfg.capacity_factor), 4)
+    cd = x.dtype
+    dev = x.device
+
+    xg = xt.reshape(g, chunk, d)
+    logits = dense(xg.to(F32), p["router"])                 # (G, C, E)
+    gate_vals, idx = _top_k(_softmax(logits), k)            # (G, C, k)
+    gate_vals = gate_vals / torch.clamp(
+        gate_vals.sum(-1, keepdim=True), min=1e-9)
+    onehot = F.one_hot(idx, e).to(F32)                      # (G, C, k, E)
+    flat = onehot.reshape(g, chunk * k, e)
+    pos = (torch.cumsum(flat, dim=1) - flat).reshape(g, chunk, k, e)
+    keep = (pos < cap) & (onehot > 0)
+    slots = torch.arange(cap, device=dev)
+    disp = torch.zeros((g, chunk, e, cap), dtype=cd, device=dev)
+    comb = torch.zeros((g, chunk, e, cap), dtype=cd, device=dev)
+    for kk in range(k):
+        sel = onehot[:, :, kk] * keep[:, :, kk].to(F32)     # (G, C, E)
+        # jax.nn.one_hot of a position past cap is all zeros, where
+        # F.one_hot would raise: compare against the slot ids instead
+        p_oh = (pos[:, :, kk].to(torch.int32)[..., None] == slots).to(F32)
+        d_k = sel[..., None] * p_oh                         # (G, C, E, cap)
+        disp = disp + d_k.to(cd)
+        comb = comb + (gate_vals[:, :, kk, None, None] * d_k).to(cd)
+
+    # dispatch: each (expert, slot) row is one token or zero, exact in cd
+    xe = torch.matmul(disp.reshape(g, chunk, e * cap).transpose(1, 2), xg)
+    xe = xe.reshape(g, e, cap, d).transpose(0, 1).reshape(e, g * cap, d)
+    h = (F.silu(_mm_f32(xe, p["w_gate"])).to(cd)
+         * _mm_f32(xe, p["w_up"]).to(cd))
+    ye = _mm_f32(h, p["w_down"]).to(cd)                     # (E, G*cap, d)
+    ye = ye.reshape(e, g, cap, d).transpose(0, 1).reshape(g, e * cap, d)
+    y = _mm_f32(comb.reshape(g, chunk, e * cap), ye)        # (G, C, d)
+    y = y.reshape(tp, d)[:t].reshape(b, s, d).to(x.dtype)
+    if cfg.n_shared:
+        y = y + mlp_apply(p["shared"], x, cfg)
+    return y

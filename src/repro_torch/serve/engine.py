@@ -210,7 +210,7 @@ def _gather_ctx(cache: dict, pages) -> dict:
     out = {}
     for key, leaf in cache.items():
         assert key in _TIME_KEYS, \
-            "prefix sharing needs an all-pool cache (attn)"
+            "prefix sharing needs an all-pool cache (attn, mla)"
         idx = torch.as_tensor(np.asarray(pages, np.int64),
                               device=leaf.device)
         g = leaf[:, idx]

@@ -69,22 +69,28 @@ def derive_draft_params(params: dict, prune_rate: float, *,
     target at ``prune_rate`` (Algorithm 1's two-pass row/column
     projection), each stored (in, out) leaf as it stands and in its own
     dtype. Embeddings, heads and norm scales stay intact (the same
-    tensors, not copies). ``prune_rate=0`` returns ``params`` itself."""
+    tensors, not copies). ``prune_rate=0`` returns ``params`` itself.
+
+    The JAX package projects a ``w*`` leaf of rank 2 or 3 as it stacks
+    it, every layer's on a leading L axis; the port's leaves inside
+    ``params["layers"]`` lack that axis, so their rank counts one more.
+    MoE expert stacks (E, d, ff) are rank 4 there and stay dense, as the
+    router does (its name)."""
     if prune_rate <= 0.0:
         return params
     spec = CSBSpec(bm=bm, bn=bn, prune_rate=float(prune_rate))
 
-    def one(name, leaf):
+    def one(name, leaf, stacked):
         if isinstance(leaf, dict):
-            return {k: one(k, v) for k, v in leaf.items()}
+            return {k: one(k, v, stacked) for k, v in leaf.items()}
         if isinstance(leaf, list):
-            return [one(name, v) for v in leaf]
-        if leaf.ndim in (2, 3) and name.startswith("w"):
+            return [one(name, v, True) for v in leaf]
+        if leaf.ndim + stacked in (2, 3) and name.startswith("w"):
             return csb_project(leaf, spec)
         return leaf
 
     with torch.no_grad():
-        return {k: one(k, v) for k, v in params.items()}
+        return {k: one(k, v, False) for k, v in params.items()}
 
 
 def _seed(*words: int) -> int:

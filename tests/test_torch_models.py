@@ -177,12 +177,14 @@ def test_init_params_shapes_match_jax(model):
         assert str(t.dtype).split(".")[-1] == str(leaf.dtype)
 
 
-@pytest.mark.parametrize("mixer,ffn", [("mla", "swiglu"), ("ssd", "none"),
+@pytest.mark.parametrize("mixer,ffn", [("ssd", "moe"), ("ssd", "none"),
                                        ("hybrid", "swiglu"),
-                                       ("attn", "moe")])
+                                       ("hybrid", "moe")])
 def test_other_mixers_and_ffns_raise(mixer, ffn):
+    """MLA and MoE are ported; the recurrent mixers raise, naming the
+    slice that brings them."""
     cfg = ModelConfig(**dict(ATTN, mixer=mixer, ffn=ffn))
-    with pytest.raises(NotImplementedError, match="slice"):
+    with pytest.raises(NotImplementedError, match="next slice"):
         init_params(cfg, torch.Generator(), device="cpu")
 
 

@@ -223,13 +223,14 @@ def test_sampling_at_temperature_draws_from_the_generator(gemma):
 
 
 @pytest.mark.parametrize("arch,match", [
-    ("deepseek-v2-236b", "mla"),
+    ("hymba-1.5b", "hybrid"),
     ("mamba2-370m", "ssd"),
     ("internvl2-2b", "image-token"),
 ])
 def test_unported_options_raise(gemma, arch, match):
-    """What the port still lacks raises: MLA, SSD (and hybrid, MoE) and
-    the codebook/image-token frontends wait for later slices."""
+    """What the port still lacks raises: SSD and hybrid and the
+    codebook/image-token frontends wait for later slices (MLA and MoE
+    serve since their port, tests/test_torch_serve_mla_moe.py)."""
     _, _, _, tp = gemma
     reqs = [Request(rid=0, tokens=np.zeros(3, np.int64), max_new_tokens=2)]
     with pytest.raises(NotImplementedError, match=match):

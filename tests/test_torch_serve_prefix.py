@@ -8,7 +8,8 @@ same shared-prefix traces through both engines, for reduced gemma-2b and
 tests/test_speculative.py's tiny ``CFG`` and windowed ``WIN``: greedy
 tokens are identical to JAX's, to ``prefix_cache=False`` and to
 ``generate``, and the partial prefill agrees with JAX's at 2e-5. The
-MLA cases of tests/test_serve_prefix.py wait for the port of MLA. Also:
+MLA cases of tests/test_serve_prefix.py are in
+tests/test_torch_prefix_spec_mla_moe.py. Also:
 a divergence mid-page copies the page before the suffix lands (the
 first request's tokens do not move), a scratch page filled with large
 values changes no token (nothing reads it unmasked), and

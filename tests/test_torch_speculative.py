@@ -9,8 +9,9 @@ converted target, has masks bit-equal to JAX's draft in fp32 and bf16,
 and at temperature 0 the speculative tokens equal JAX's and the plain
 engine's for spec_k 1, 2, 4 and prune rates 0, 0.5. JAX keys its draws
 with ``jax.random``, which torch cannot reproduce, so at temperature > 0
-the port is held to its own spec_k-invariance instead. The MLA and mesh
-cases of tests/test_speculative.py wait for the port of MLA and meshes."""
+the port is held to its own spec_k-invariance instead. The MLA case of
+tests/test_speculative.py is in tests/test_torch_prefix_spec_mla_moe.py;
+its mesh cases wait for the port of meshes."""
 import dataclasses
 
 import jax
