@@ -99,6 +99,24 @@ Phases, each of which raises (and the script exits nonzero) on failure:
    (rate 0) print their speed and agreement. Per dtype: metrics, a
    decode-step profile and peak memory; in bf16, B2 timed at the busiest
    step against its bound and gather + SDPA (backend printed).
+9. The SSD and hybrid slice (``[phase ssd]``), after deepseek is freed:
+   hymba-1.5b (32 layers, d_model 1600, attention of 25 heads over 5 KV
+   heads of 64 beside 25 SSD heads, SwiGLU) and mamba2-370m (48 layers,
+   d_model 1024, SSD alone, no FFN) at full width and depth, random
+   weights from a seeded generator, fp32 and a bf16 copy, each serving
+   the LM trace with bucketing off (the engine turns it off for these
+   mixers). hymba in fp32: paged through B2 and through the gather
+   path, and contiguous, with equal tokens, B2's launches 2 x 32 x
+   single-query paged steps, B2 held to its plain version (and fp64) on
+   the layers' own inputs; mamba2 in fp32: paged (B2 launches 0) and
+   contiguous, tokens equal. Both: a 1-token and a 2-token prompt (a
+   1-row conv state written at the slot's start) through paged and
+   contiguous serving with equal tokens; ``generate`` (4 x 256) and its
+   agreement with paged serving (``generate`` carries an fp32 SSM state,
+   serving a bf16 one, as in JAX); in bf16 paged serving's metrics, a
+   decode-step profile and peak memory; hymba's B2 on the bf16 layers'
+   inputs and timed at its shape against its bound and gather + SDPA.
+   B2's kernel phase also holds it at hymba's shape (5 heads per CTA).
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Without CUDA the script
@@ -210,6 +228,9 @@ DS_ARCH = "deepseek-v2-236b"
 DS_LAYERS = {"float32": 2, "bfloat16": 4}
 DS_PROMPT_LENS = (64, 64, 128, 128, 256, 256, 512, 1024)
 DS_MAX_NEW = 32
+# the SSD and hybrid slice, at full width and depth
+SSD_ARCHS = ("hymba-1.5b", "mamba2-370m")
+SHORT_LENS = (1, 2)        # shorter than conv_k - 1: a 1-row conv state
 
 
 def card_info() -> str:
@@ -450,11 +471,14 @@ def graph_ms(fn, calls=20, reps=20) -> float:
     return median_ms(graph.replay, reps=reps, warm=2) / calls
 
 
-def device_kernel_ms(fn, names=("csb_mvm_kernel",), reps=20):
+def device_kernel_ms(fn, names=("csb_mvm_kernel",), reps=20,
+                     once_per_call=False):
     """Device time per call of fn of every kernel whose name contains one
     of ``names`` (every kernel if ``names`` is None), from torch.profiler:
     (total ms, {kernel: ms}), or (None, {}) where the profiler shows no
-    device time."""
+    device time. With ``once_per_call`` (each named kernel launched once
+    a call) a kernel's time is its mean over the launches the profiler
+    recorded, which late in a long run are not always all of them."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -463,11 +487,18 @@ def device_kernel_ms(fn, names=("csb_mvm_kernel",), reps=20):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    each = {ev.key: ev.self_device_time_total / 1e3 / reps
-            for ev in prof.key_averages()
-            if ev.device_type == torch.autograd.DeviceType.CUDA
-            and (names is None or any(nm in ev.key for nm in names))}
+    evs = [ev for ev in prof.key_averages()
+           if ev.device_type == torch.autograd.DeviceType.CUDA
+           and (names is None or any(nm in ev.key for nm in names))]
+    if once_per_call and any(ev.count < reps for ev in evs):
+        print(f"  the profiler recorded {[ev.count for ev in evs]} of "
+              f"{reps} launches a kernel; times are means over those")
+    each = {ev.key: ev.self_device_time_total / 1e3
+            / (ev.count if once_per_call else reps) for ev in evs}
     total = sum(each.values())
+    if once_per_call and not all(any(nm in k for k in each) for nm in names):
+        print(f"  the profiler recorded no launch of some of {names}")
+        return None, each
     return (total if total > 0 else None), each
 
 
@@ -694,7 +725,8 @@ def exact_check(label, case, out, ref) -> None:
 
 
 # cases of fp32 pools also held against the answer in fp64
-EXACT_CASES = ("MLA 128 heads, rope, D 512 + 64", "gemma-2b decode shape")
+EXACT_CASES = ("MLA 128 heads, rope, D 512 + 64", "gemma-2b decode shape",
+               "hymba-1.5b decode shape")
 
 
 def compare_paged(label, case, exact=False) -> float:
@@ -734,9 +766,9 @@ def _slot_table(rng, pos_list, psz, max_pages):
     return table, n_pages + 1
 
 
-def paged_kernel_phase(dev) -> float:
-    """B2 kernel vs plain version; returns the max abs error at
-    gemma-2b's decode shape."""
+def paged_kernel_phase(dev) -> dict:
+    """B2 kernel vs plain version; returns the max abs errors at
+    gemma-2b's and hymba-1.5b's decode shapes."""
     rng = np.random.default_rng(SEED + 3)
     t3 = [[0, 1, 2], [3, 4, 9], [5, 6, 7]]
     cases = {
@@ -813,11 +845,16 @@ def paged_kernel_phase(dev) -> float:
     tab, n = _slot_table(rng, gemma, 16, 65)
     cases["gemma-2b decode shape"] = dict(b=4, h=8, kv=1, d=256, psz=16,
                                           n_pages=n, table=tab, pos=gemma)
+    # hymba-1.5b's attention: 25 heads over 5 KV heads (5 heads per CTA)
+    tab, n = _slot_table(rng, gemma, 16, 65)
+    cases["hymba-1.5b decode shape"] = dict(b=4, h=25, kv=5, d=64, psz=16,
+                                            n_pages=n, table=tab, pos=gemma)
     table, pos, n, shared = shared_page_snapshot(get_config(ARCH).vocab)
     cases[f"prefix trace, {shared} pages mapped by several slots"] = dict(
         b=len(pos), n_pages=n, table=table, pos=pos.tolist(), **gem)
     f32, bf16 = torch.float32, torch.bfloat16
-    n_cmp, gemma_err, worst = 0, 0.0, {f32: (0.0, ""), bf16: (0.0, "")}
+    n_cmp, worst = 0, {f32: (0.0, ""), bf16: (0.0, "")}
+    err_at = {"gemma": 0.0, "hymba": 0.0}
     for label, kw in cases.items():
         case = paged_case(rng, dev, **kw)
         for pool_dt, q_dt in ((f32, f32), (bf16, bf16), (bf16, f32)):
@@ -827,17 +864,20 @@ def paged_kernel_phase(dev) -> float:
                 exact=label in EXACT_CASES and pool_dt == q_dt == f32)
             n_cmp += 1
             worst[pool_dt] = max(worst[pool_dt], (err, label))
-            if label.startswith(("gemma", "prefix trace")):
-                gemma_err = max(gemma_err, err)
+            model = ("gemma" if label.startswith(("gemma", "prefix trace"))
+                     else "hymba" if label.startswith("hymba") else None)
+            if model:
+                err_at[model] = max(err_at[model], err)
                 print(f"  {label}, pools {pool_dt}, q {q_dt}: max abs err "
                       f"{err:.3e}")
     print(f"paged kernel phase: {n_cmp} comparisons passed (tol "
           f"{PAGED_TOL[f32]:g} fp32 pools, {PAGED_TOL[bf16]:g} bf16 pools); "
           f"max abs err at gemma-2b's shape (own and shared-page tables) "
-          f"{gemma_err:.3e}; over all "
+          f"{err_at['gemma']:.3e}, at hymba-1.5b's {err_at['hymba']:.3e}; "
+          f"over all "
           f"cases {worst[f32][0]:.3e} with fp32 pools ({worst[f32][1]}), "
           f"{worst[bf16][0]:.3e} with bf16 pools ({worst[bf16][1]})")
-    return gemma_err
+    return err_at
 
 
 def prefix_requests(vocab: int, max_new: int = MAX_NEW) -> list:
@@ -987,8 +1027,8 @@ def serve_lm(cfg, params, use_kernel: bool, observe: bool = False):
 def first_step(cfg, params, dev, trace=None):
     """The run's first decode step rebuilt by hand: the four requests
     that arrive at step 0 (of ``trace``, default the LM trace) prefilled
-    (bucketed, as the engine does) into a fresh pool; returns (cache,
-    tokens, pos, table, head)."""
+    (bucketed where the engine buckets: not for SSD and hybrid) into a
+    fresh pool; returns (cache, tokens, pos, table, head)."""
     trace = trace or lm_requests(cfg.vocab)
     reqs = trace[:LM_ENGINE.n_slots]
     psz = LM_ENGINE.page_size
@@ -1006,7 +1046,9 @@ def first_step(cfg, params, dev, trace=None):
             plen = r.prompt_len
             pool.reserve(slot, plen + r.max_new_tokens)
             pool.ensure(slot, plen + 1)
-            toks = np.pad(r.tokens, (0, bucket_len(plen) - plen))
+            toks = r.tokens
+            if cfg.mixer in ("attn", "mla"):
+                toks = np.pad(toks, (0, bucket_len(plen) - plen))
             lg, c = LM.prefill(params, {"tokens": torch.as_tensor(
                 toks, device=dev)[None]}, cfg, last_pos=plen - 1,
                 head=head)
@@ -1028,7 +1070,7 @@ def first_step_logits(cfg, params, dev, trace=None):
     out = []
     with torch.no_grad():
         for use_kernel in (True, False):
-            c = {k: v.clone() for k, v in cache.items()}
+            c = _tree(cache, torch.clone)
             lg, _ = LM.decode_step_paged(params, c, cur, pos, table, cfg,
                                          use_kernel=use_kernel, head=head)
             out.append(lg[:, 0])
@@ -1353,16 +1395,17 @@ def build_deepseek(dtype: str, dev):
     return cfg, params
 
 
-def ds_run(what, cfg, params, reqs, engine, observe=False):
-    """One serve run of a deepseek trace, B2's launches held to 2 x
-    layers x single-query paged steps (0 off the kernel path)."""
+def serve_run(what, cfg, params, reqs, engine, observe=False):
+    """One serve run of a trace, B2's launches held to 2 x layers x
+    single-query paged steps (0 off the kernel path, and for SSD, which
+    has no attention)."""
     if observe:
         obs_trace.enable()
         obs_metrics.enable()
     paged_attn.LAUNCHES = 0
     res = serve_continuous(params, cfg, reqs, engine)
     single = (engine.paged and engine.use_kernel
-              and not engine.speculative)
+              and not engine.speculative and cfg.mixer != "ssd")
     launches = b2_launches(what, cfg, res, use_kernel=single)
     if single and launches <= 0:
         raise AssertionError(f"{what}: B2 was never launched")
@@ -1387,10 +1430,11 @@ def agreement(a: dict, b: dict) -> str:
     return f"{same}/{sum(len(v) for v in a.values())}"
 
 
-def b2_on_the_path(cfg, params, state) -> float:
-    """B2 held against its plain version on the inputs the MLA layers
-    give it in one decode step (each layer's q_c, q_rope and pools),
-    at ``PAGED_TOL``; with fp32 pools also against the exact answer."""
+def b2_on_the_path(cfg, params, state, path="MLA") -> float:
+    """B2 held against its plain version on the inputs the layers give it
+    in one decode step (each layer's query and pools; MLA's q_c, q_rope
+    and latent pools), at ``PAGED_TOL``; with fp32 pools also against the
+    exact answer."""
     from repro_torch.kernels import ops
     cache, cur, pos, table, head = state
     calls = []
@@ -1403,9 +1447,8 @@ def b2_on_the_path(cfg, params, state) -> float:
     ops.paged_attn_decode = spy
     try:
         with torch.no_grad():
-            LM.decode_step_paged(params, {k: v.clone() for k, v in
-                                          cache.items()}, cur, pos, table,
-                                 cfg, use_kernel=True, head=head)
+            LM.decode_step_paged(params, _tree(cache, torch.clone), cur, pos,
+                                 table, cfg, use_kernel=True, head=head)
     finally:
         ops.paged_attn_decode = run
     if len(calls) != cfg.n_layers:
@@ -1414,17 +1457,18 @@ def b2_on_the_path(cfg, params, state) -> float:
     worst = 0.0
     for li, ((q, kp, vp, tab, p), kw) in enumerate(calls):
         case = dict(q=q, k_pool=kp, v_pool=vp, page_table=tab, pos=p,
-                    window=None, **kw)
+                    **{"window": None, **kw})
         worst = max(worst, compare_paged(
-            f"{DS_ARCH} {cfg.dtype} layer {li} (MLA path)", case,
+            f"{cfg.name} {cfg.dtype} layer {li} ({path} path)", case,
             exact=kp.dtype == torch.float32))
-    print(f"  B2 on the MLA path ({cfg.dtype}, q {calls[0][0][0].dtype}, "
+    print(f"  B2 on the {path} path ({cfg.dtype}, q {calls[0][0][0].dtype}, "
           f"pools {calls[0][0][1].dtype}, {len(calls)} layers): max abs err "
-          f"vs plain {worst:.3e} (tol {PAGED_TOL[calls[0][0][1].dtype]:g})")
+          f"vs plain {worst:.3e} (allclose, rtol = atol = "
+          f"{PAGED_TOL[calls[0][0][1].dtype]:g})")
     return worst
 
 
-def ds_metrics(what, res, reg) -> dict:
+def serve_metrics(what, res, reg) -> dict:
     hist = reg.to_dict(series=False)["histograms"]
     step, ttft = hist["serve/step/wall_us"], hist["serve/req/ttft_us"]
     out = {"ms_per_token": _per_token_ms(res),
@@ -1440,13 +1484,47 @@ def ds_metrics(what, res, reg) -> dict:
     return out
 
 
+def generate_vs_paged(cfg, params, max_new, how, why) -> int:
+    """``generate`` on four 256-token prompts (numpy seed 1), then paged
+    serving of the same requests through B2; prints the speed of both and
+    their agreement (``how`` says how generate batches, ``why`` why the
+    two may differ). Returns B2's launches."""
+    prompts = np.random.default_rng(SEED + 1).integers(
+        0, cfg.vocab, size=GEN_SHAPE)
+    b, s = GEN_SHAPE
+    torch.cuda.synchronize()
+    paged_attn.LAUNCHES = 0
+    t0 = time.perf_counter()
+    out = generate(params, cfg, prompts,
+                   EngineConfig(max_new_tokens=max_new))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if paged_attn.LAUNCHES:
+        raise AssertionError("generate launched the paged kernel")
+    gen = out[:, s:].cpu().numpy()
+    if out.shape != (b, s + max_new) or gen.min() < 0 \
+            or gen.max() >= cfg.vocab:
+        raise AssertionError(f"generate: bad output {tuple(out.shape)}")
+    greqs = [Request(rid=i, tokens=prompts[i], max_new_tokens=max_new)
+             for i in range(b)]
+    twin, n, _ = serve_run(f"generate's paged twin {cfg.dtype}", cfg,
+                           params, greqs, LM_ENGINE.replace(use_kernel=True))
+    print(f"  generate {cfg.dtype}: {b} x {s}-token prompts {how}, "
+          f"{max_new} new tokens in {wall:.2f} s wall (prefill "
+          f"included): {1e3 * wall / (b * max_new):.2f} ms per token, "
+          f"{b * max_new / wall:.1f} tok/s; agrees with paged serving "
+          f"({why}) at "
+          f"{agreement({i: gen[i].tolist() for i in range(b)}, twin.tokens)}")
+    return n
+
+
 def deepseek_fp32_paths(cfg, params, paged_tokens) -> int:
     """Contiguous, prefix-cache, ``generate`` and speculative serving of
     the fp32 model; returns B2's launches over them."""
     launches = 0
     reqs = lm_requests(cfg.vocab, DS_PROMPT_LENS, DS_MAX_NEW)
-    res, _, _ = ds_run("contiguous fp32", cfg, params, reqs,
-                       EngineConfig(n_slots=LM_ENGINE.n_slots))
+    res, _, _ = serve_run("contiguous fp32", cfg, params, reqs,
+                          EngineConfig(n_slots=LM_ENGINE.n_slots))
     same_tokens("contiguous vs paged serving", cfg, params, reqs,
                 res.tokens, paged_tokens)
     print("  contiguous fp32 tokens equal the paged path's")
@@ -1457,7 +1535,8 @@ def deepseek_fp32_paths(cfg, params, paged_tokens) -> int:
                           PREFIX_ENGINE.replace(use_kernel=False)),
                          ("prefix off, B2",
                           PREFIX_ENGINE.replace(prefix_cache=False))):
-        runs[name], n, _ = ds_run(f"{name} fp32", cfg, params, preq, engine)
+        runs[name], n, _ = serve_run(f"{name} fp32", cfg, params, preq,
+                                     engine)
         launches += n
     on = runs["prefix on, B2"]
     if on.stats["prefix_hits"] < MIN_PREFIX_HITS:
@@ -1469,36 +1548,13 @@ def deepseek_fp32_paths(cfg, params, paged_tokens) -> int:
           f"gather path's; prefix on vs off agree at "
           f"{agreement(on.tokens, runs['prefix off, B2'].tokens)} (a suffix "
           f"is its own MoE chunk, in JAX too: not required equal)")
-    prompts = np.random.default_rng(SEED + 1).integers(
-        0, cfg.vocab, size=GEN_SHAPE)
-    b, s = GEN_SHAPE
-    torch.cuda.synchronize()
-    paged_attn.LAUNCHES = 0
-    t0 = time.perf_counter()
-    out = generate(params, cfg, prompts,
-                   EngineConfig(max_new_tokens=DS_MAX_NEW))
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    if paged_attn.LAUNCHES:
-        raise AssertionError("generate launched the paged kernel")
-    gen = out[:, s:].cpu().numpy()
-    if out.shape != (b, s + DS_MAX_NEW) or gen.min() < 0 \
-            or gen.max() >= cfg.vocab:
-        raise AssertionError(f"generate: bad output {tuple(out.shape)}")
-    greqs = [Request(rid=i, tokens=prompts[i], max_new_tokens=DS_MAX_NEW)
-             for i in range(b)]
-    twin, n, _ = ds_run("generate's paged twin fp32", cfg, params, greqs,
-                        LM_ENGINE.replace(use_kernel=True))
-    launches += n
-    print(f"  generate fp32: {b} x {s}-token prompts in one MoE chunk, "
-          f"{DS_MAX_NEW} new tokens in {wall:.2f} s wall (prefill "
-          f"included): {1e3 * wall / (b * DS_MAX_NEW):.2f} ms per token, "
-          f"{b * DS_MAX_NEW / wall:.1f} tok/s; agrees with paged serving "
-          f"(each prompt its own chunk) at "
-          f"{agreement({i: gen[i].tolist() for i in range(b)}, twin.tokens)}")
+    launches += generate_vs_paged(
+        cfg, params, DS_MAX_NEW, "in one MoE chunk",
+        "each prompt its own chunk")
     engine = LM_ENGINE.replace(use_kernel=True, speculative=True,
                                spec_k=SPEC_K, draft_prune_rate=0.0)
-    res, _, _ = ds_run("speculative fp32, rate 0", cfg, params, reqs, engine)
+    res, _, _ = serve_run("speculative fp32, rate 0", cfg, params, reqs,
+                          engine)
     sp = res.stats["speculative"]
     print(f"  speculative fp32, spec_k {SPEC_K}, rate 0: {sp['rounds']} "
           f"rounds, acceptance {sp['acceptance_rate']} ({sp['accepted']}/"
@@ -1522,10 +1578,11 @@ def deepseek_phase(dev) -> dict:
               f"{DS_PROMPT_LENS}, {DS_MAX_NEW} new tokens each, arrivals "
               f"{ARRIVALS}, {LM_ENGINE.n_slots} slots, page size "
               f"{LM_ENGINE.page_size}")
-        k, nk, reg = ds_run(f"paged {dtype}, B2", cfg, params, reqs,
-                            LM_ENGINE.replace(use_kernel=True), observe=True)
-        g, _, _ = ds_run(f"paged {dtype}, gather", cfg, params, reqs,
-                         LM_ENGINE)
+        k, nk, reg = serve_run(f"paged {dtype}, B2", cfg, params, reqs,
+                               LM_ENGINE.replace(use_kernel=True),
+                               observe=True)
+        g, _, _ = serve_run(f"paged {dtype}, gather", cfg, params, reqs,
+                            LM_ENGINE)
         out["launches"] += nk
         lk, lg, state = first_step_logits(cfg, params, dev, reqs)
         if not (torch.isfinite(lk).all() and torch.isfinite(lg).all()):
@@ -1546,7 +1603,7 @@ def deepseek_phase(dev) -> dict:
             print(f"  bf16: B2 and gather tokens agree at "
                   f"{agreement(k.tokens, g.tokens)} (bf16: printed only)")
         out[f"b2_err_{dtype}"] = b2_on_the_path(cfg, params, state)
-        out[dtype] = ds_metrics(f"paged {dtype}, B2", k, reg)
+        out[dtype] = serve_metrics(f"paged {dtype}, B2", k, reg)
         out[dtype].update(decode_profile(f"{DS_ARCH} {dtype}", cfg, params,
                                          state))
         if dtype == "float32":
@@ -1570,6 +1627,136 @@ def deepseek_phase(dev) -> dict:
         print(f"  {DS_ARCH} {dtype}: peak memory "
               f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
         del params, state, k, g
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the SSD and hybrid slice: hymba-1.5b and mamba2-370m, full width and depth
+# ---------------------------------------------------------------------------
+
+def build_ssd(arch: str, dtype: str, dev):
+    """``arch`` at full width and depth in ``dtype``, random weights from
+    a generator seeded ``SEED`` (the bf16 model is the fp32 one rounded:
+    the same draws; SSD's a_log, d_skip and dt_bias stay fp32)."""
+    cfg = dataclasses.replace(get_config(arch), dtype=dtype)
+    params = LM.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(SEED), device=dev)
+    n = sum(t.numel() for t in _leaves(params))
+    # param_count() counts the unpadded vocab and two norms a layer, and
+    # leaves out SSD's a_log, d_skip, dt_bias and out_norm and hybrid's
+    # two output norms
+    d = cfg.d_model
+    extra = (3 * cfg.ssd_heads + cfg.d_inner
+             + (2 * d if cfg.mixer == "hybrid" else 0)
+             - (d if cfg.ffn == "none" else 0))
+    want = (cfg.param_count() + cfg.n_layers * extra
+            + (cfg.padded_vocab - cfg.vocab) * d
+            * (1 if cfg.tie_embeddings else 2))
+    if n != want:
+        raise AssertionError(f"{n} parameters, the config counts {want}")
+    size = sum(t.numel() * t.element_size() for t in _leaves(params))
+    print(f"{arch} {dtype}: full width and depth ({cfg.n_layers} layers, "
+          f"d_model {d}, mixer {cfg.mixer}"
+          + (f", {cfg.n_heads} heads over {cfg.n_kv} KV heads of "
+             f"{cfg.hd}" if cfg.mixer == "hybrid" else "")
+          + f", SSD {cfg.ssd_heads} heads of {cfg.ssd_headdim}, d_state "
+          f"{cfg.d_state}, conv {cfg.conv_k}, chunk {cfg.ssd_chunk}, ffn "
+          f"{cfg.ffn}, vocab {cfg.vocab}): {n} parameters "
+          f"({cfg.param_count()} by param_count()), {size / 1e9:.2f} GB")
+    return cfg, params
+
+
+def ssd_phase(dev) -> dict:
+    """hymba-1.5b (attention through B2 at 25 heads over 5, and SSD) and
+    mamba2-370m (SSD alone: B2 never runs) at full width and depth, fp32
+    and bf16, on the LM trace with bucketing off (as the engine sets it
+    for these mixers)."""
+    out = {"launches": 0}
+    for arch in SSD_ARCHS:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        cfg, p32 = build_ssd(arch, "float32", dev)
+        hybrid = cfg.mixer == "hybrid"
+        reqs = lm_requests(cfg.vocab)
+        k32, n, _ = serve_run(f"{arch} paged fp32, B2", cfg, p32, reqs,
+                              LM_ENGINE.replace(use_kernel=True))
+        out["launches"] += n
+        if k32.stats["bucketed_prefill"]:
+            raise AssertionError(f"{arch}: the engine bucketed prompts")
+        paths = {"contiguous": EngineConfig(n_slots=LM_ENGINE.n_slots)}
+        if hybrid:
+            paths["paged, gather"] = LM_ENGINE
+        for name, engine in paths.items():
+            res, _, _ = serve_run(f"{arch} {name} fp32", cfg, p32, reqs,
+                                  engine)
+            same_tokens(f"{arch} {name} vs paged B2", cfg, p32, reqs,
+                        res.tokens, k32.tokens)
+        print(f"  {arch} fp32: tokens equal across paged "
+              f"{'B2, gather' if hybrid else '(B2 on: 0 launches)'} and "
+              f"contiguous serving")
+        rng = np.random.default_rng(SEED + 6)
+        short = [Request(rid=i, tokens=rng.integers(0, cfg.vocab, size=s),
+                         max_new_tokens=8) for i, s in enumerate(SHORT_LENS)]
+        sp, n, _ = serve_run(f"{arch} prompts of {SHORT_LENS} tokens, paged",
+                             cfg, p32, short,
+                             LM_ENGINE.replace(use_kernel=True))
+        out["launches"] += n
+        sc, _, _ = serve_run(f"{arch} prompts of {SHORT_LENS} tokens, "
+                             f"contiguous", cfg, p32, short,
+                             EngineConfig(n_slots=LM_ENGINE.n_slots))
+        same_tokens(f"{arch} short prompts, paged vs contiguous", cfg, p32,
+                    short, sp.tokens, sc.tokens)
+        print(f"  {arch} prompts of {SHORT_LENS} tokens (a 1-row conv "
+              f"state written at the slot's start): paged and contiguous "
+              f"tokens equal")
+        out["launches"] += generate_vs_paged(
+            cfg, p32, MAX_NEW, "prefilled together",
+            "generate carries the prefill's fp32 SSM state, serving rounds "
+            f"it to {cfg.ssd_state_dtype}, as in JAX")
+        if hybrid:
+            lk, lg, state = first_step_logits(cfg, p32, dev, reqs)
+            print(f"  first decode step, fp32: B2 vs gather logits max abs "
+                  f"diff {float((lk - lg).abs().max()):.3e}")
+            out["b2_err_float32"] = b2_on_the_path(
+                cfg, p32, state, "hybrid attention")
+            del state
+        del p32
+        gc.collect()
+        torch.cuda.empty_cache()
+        cfg16, p16 = build_ssd(arch, "bfloat16", dev)
+        k16, n, reg = serve_run(f"{arch} paged bf16, B2", cfg16, p16, reqs,
+                                LM_ENGINE.replace(use_kernel=True),
+                                observe=True)
+        out["launches"] += n
+        print(f"  {arch} bf16 and fp32 paged tokens agree at "
+              f"{agreement(k16.tokens, k32.tokens)} (printed only)")
+        met = serve_metrics(f"{arch} paged bf16, B2", k16, reg)
+        state = first_step(cfg16, p16, dev, reqs)
+        if hybrid:
+            out["b2_err_bfloat16"] = b2_on_the_path(
+                cfg16, p16, state, "hybrid attention")
+        met.update(decode_profile(f"{arch} bfloat16", cfg16, p16, state))
+        if hybrid:
+            steps = replay_positions(cfg16.vocab, reqs)
+            if len(steps) != k16.stats["decode_steps"]:
+                raise AssertionError(f"replayed {len(steps)} decode steps, "
+                                     f"the run took "
+                                     f"{k16.stats['decode_steps']}")
+            pos_h, active = max(steps,
+                                key=lambda s: int((s[0] + 1)[s[1]].sum()))
+            max_pages = -(-max(r.prompt_len + r.max_new_tokens
+                               for r in reqs) // LM_ENGINE.page_size)
+            out["timing"] = b2_timing(
+                f"{arch} attention", pos_h, active, dev, h=cfg16.n_heads,
+                kv=cfg16.n_kv, d=cfg16.hd, psz=LM_ENGINE.page_size,
+                max_pages=max_pages)
+        met["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        print(f"  {arch}: peak memory {met['peak_gb']:.2f} GB")
+        out[arch] = met
+        del p16, state, k16, k32
     gc.collect()
     torch.cuda.empty_cache()
     return out
@@ -1628,8 +1815,10 @@ def _sdpa_backend(fn) -> str:
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
+    # five calls: late in a long run the profiler may drop a call's kernels
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
+        for _ in range(5):
+            fn()
         torch.cuda.synchronize()
     names = " ".join(ev.key.lower() for ev in prof.key_averages()
                      if ev.device_type == torch.autograd.DeviceType.CUDA)
@@ -1700,7 +1889,7 @@ def b2_timing(label, pos_h, active, dev, *, h, kv, d, psz, max_pages,
     plain_ms = median_ms(plain_version)
     library_ms = median_ms(library)
     gather_ms = median_ms(gather)
-    dev_ms, each = device_kernel_ms(kernel, B2_NAMES)
+    dev_ms, each = device_kernel_ms(kernel, B2_NAMES, once_per_call=True)
     library_dev_ms, _ = device_kernel_ms(library, None)
     kernel_graph_ms, library_graph_ms = graph_ms(kernel), graph_ms(library)
     gather_sdpa_graph_ms = graph_ms(lambda: F.scaled_dot_product_attention(
@@ -1708,15 +1897,21 @@ def b2_timing(label, pos_h, active, dev, *, h, kv, d, psz, max_pages,
     hpc, ps, splits = paged_attn.plan(b, h // kv, kv, d, d2, psz, max_pages,
                                       paged_attn.sm_count(dev.index))
     planned = (splits, kv * (h // kv // hpc), b)
-    traced = traced_kernels(kernel, B2_NAMES, calls=5)
     # the profiler can miss kernels at the edges of its window (at MLA's
-    # shape it missed a whole call once and a call's scores kernel once),
-    # so drop what precedes the first scores kernel and a partial call at
+    # shape it missed a whole call once and a call's scores kernel once;
+    # at hymba's, after the phases before it, a whole trace once), so
+    # drop what precedes the first scores kernel and a partial call at
     # the end: the rest must be whole calls, each the scores kernel then
-    # the PV kernel and nothing else
-    first = next((i for i, (name, _) in enumerate(traced)
-                  if B2_NAMES[0] in name), len(traced))
-    calls = (len(traced) - first) // len(B2_NAMES)
+    # the PV kernel and nothing else. A trace with no whole call is
+    # taken again, three times at most.
+    for attempt in range(1, 4):
+        traced = traced_kernels(kernel, B2_NAMES, calls=5)
+        first = next((i for i, (name, _) in enumerate(traced)
+                      if B2_NAMES[0] in name), len(traced))
+        calls = (len(traced) - first) // len(B2_NAMES)
+        if calls:
+            break
+        print(f"  trace {attempt} of B2 at {label} holds no whole call")
     seq = traced[first:first + calls * len(B2_NAMES)]
     per_call = len(seq) / calls if calls else 0
     if not calls or any(B2_NAMES[i % len(B2_NAMES)] not in name
@@ -1842,6 +2037,7 @@ def main() -> int:
           f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB, now allocated "
           f"{torch.cuda.memory_allocated() / 1e9:.2f} GB")
     ds = phase("deepseek", deepseek_phase, dev)
+    ssd = phase("ssd", ssd_phase, dev)
     print(f"[total {time.perf_counter() - t_start:.1f} s]")
     print(json.dumps({"kernels": [{
         **KERNEL, "launches": sl["launches"], "max_abs_err": max_err,
@@ -1854,8 +2050,8 @@ def main() -> int:
     }, {
         **PAGED_KERNEL,
         "launches": (lm_launches + gen_launches + px["launches"]
-                     + ds["launches"]),
-        "max_abs_err": paged_err, "ms": pt["ms"],
+                     + ds["launches"] + ssd["launches"]),
+        "max_abs_err": paged_err["gemma"], "ms": pt["ms"],
         "plain_ms": pt["plain_ms"], "bound_ms": pt["bound_ms"],
         "bound_by": pt["bound_by"], "library_ms": pt["library_ms"],
         "device_ms": pt["device_ms"], "gather_ms": pt["gather_ms"],
@@ -1873,6 +2069,15 @@ def main() -> int:
             "library_graph_ms", "gather_sdpa_graph_ms", "sdpa_backend",
             "ctas")},
         "deepseek": {d: ds[d] for d in ("float32", "bfloat16")},
+        "hymba_launches": ssd["launches"],
+        "hymba_max_abs_err": max(paged_err["hymba"], ssd["b2_err_float32"],
+                                 ssd["b2_err_bfloat16"]),
+        **{f"hymba_{k}": ssd["timing"][k] for k in (
+            "ms", "device_ms", "graph_ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms", "library_device_ms",
+            "library_graph_ms", "gather_sdpa_graph_ms", "sdpa_backend",
+            "ctas")},
+        **{a: ssd[a] for a in SSD_ARCHS},
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

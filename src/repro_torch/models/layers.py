@@ -3,8 +3,9 @@
 A port of ``repro.models.layers``: dense projections, RMSNorm, RoPE,
 blockwise (flash-style) causal attention for prefill, the GQA attention
 sublayer and DeepSeek's multi-head latent attention (MLA) with their
-contiguous and paged decode, the gated MLP and the capacity-dropped
-mixture of experts (MoE). Each function keeps
+contiguous and paged decode, the gated MLP, the capacity-dropped
+mixture of experts (MoE), mamba2's chunked state-space (SSD) block and
+hymba's hybrid of attention and SSD heads. Each function keeps
 the JAX package's layouts and numerics: parameters in ``cfg.dtype``,
 matmul accumulation, softmax and norms in fp32, ``-1e30`` (not -inf)
 for masked scores. Where JAX asks for ``preferred_element_type=F32`` on
@@ -16,7 +17,7 @@ The JAX package pins layouts with ``shard(...)``/``replicated()`` to work
 around XLA:CPU SPMD miscompiles; the port has no mesh and drops them.
 The cache primitives write in place (``_cache_write``, ``paged_write``),
 where JAX returns a new array: it saves a copy of the whole cache per
-layer and step. SSD and hybrid layers wait for a later slice.
+layer and step; so do the SSD decode's per-slot states (``ssd_step``).
 """
 from __future__ import annotations
 
@@ -587,6 +588,17 @@ def mla_paged_cache_init(cfg: ModelConfig, n_pages: int, page_size: int,
 # Gated MLPs
 # ---------------------------------------------------------------------------
 
+def _silu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.silu`` as JAX evaluates it, x * (1 / (1 + exp(-x))) with
+    each op rounded to x's dtype: in bf16, ``F.silu``'s single rounding
+    moves ~40% of outputs by an ulp, which SSD's scan and the layers
+    after carry on. In fp32 the two agree to an ulp, and ``F.silu`` is
+    one kernel."""
+    if x.dtype == F32:
+        return F.silu(x)
+    return x * (1 / (1 + torch.exp(-x)))
+
+
 def mlp_init(gen: torch.Generator, cfg: ModelConfig, device,
              d_ff: int | None = None) -> dict:
     dt = _dtype(cfg)
@@ -602,7 +614,7 @@ def mlp_apply(p, x, cfg: ModelConfig):
     g = dense(x, p["w_gate"])
     # jax.nn.gelu defaults to the tanh approximation; torch's is exact
     act = (F.gelu(g, approximate="tanh") if cfg.ffn == "geglu"
-           else F.silu(g))
+           else _silu(g))
     return dense(act * dense(x, p["w_up"]), p["w_down"])
 
 
@@ -705,3 +717,278 @@ def moe_apply(p, x, cfg: ModelConfig):
     if cfg.n_shared:
         y = y + mlp_apply(p["shared"], x, cfg)
     return y
+
+
+# ---------------------------------------------------------------------------
+# Mamba2 SSD (state-space duality, chunked)
+# ---------------------------------------------------------------------------
+
+def ssd_init(gen: torch.Generator, cfg: ModelConfig, device) -> dict:
+    """Both in-projections of the JAX package: one fused ``w_in`` (z, x,
+    B, C, dt) or, with ``cfg.ssd_split_proj``, one weight per stream.
+    ``a_log``, ``d_skip`` and ``dt_bias`` stay fp32 whatever
+    ``cfg.dtype``."""
+    dt = _dtype(cfg)
+    d, di, n, h = cfg.d_model, cfg.d_inner, cfg.d_state, cfg.ssd_heads
+
+    def conv(width):
+        w = torch.randn((cfg.conv_k, width), generator=gen, device=device)
+        return (w * 0.1).to(dt)
+
+    p = {
+        "a_log": torch.zeros((h,), dtype=F32, device=device),
+        "d_skip": torch.ones((h,), dtype=F32, device=device),
+        "dt_bias": torch.zeros((h,), dtype=F32, device=device),
+        "out_norm": rmsnorm_init(di, dt, device),
+        "w_out": dense_init(gen, di, d, dt, device),
+    }
+    if cfg.ssd_split_proj:
+        p.update({
+            "w_in_z": dense_init(gen, d, di, dt, device),
+            "w_in_x": dense_init(gen, d, di, dt, device),
+            "w_in_bc": dense_init(gen, d, 2 * n, dt, device),
+            "w_in_dt": dense_init(gen, d, h, dt, device),
+            "conv_w_x": conv(di),
+            "conv_w_bc": conv(2 * n),
+        })
+    else:
+        p.update({
+            "w_in": dense_init(gen, d, 2 * di + 2 * n + h, dt, device),
+            "conv_w": conv(di + 2 * n),
+        })
+    return p
+
+
+def _ssd_in_proj(p, x, cfg: ModelConfig):
+    """Returns (z, conv_in, dt) where conv_in = [x, B, C]."""
+    di, n = cfg.d_inner, cfg.d_state
+    if cfg.ssd_split_proj:
+        z = dense(x, p["w_in_z"])
+        xin = dense(x, p["w_in_x"])
+        bcmat = dense(x, p["w_in_bc"])
+        dtp = dense(x, p["w_in_dt"])
+        return z, torch.cat([xin, bcmat], -1), dtp
+    zxbcdt = dense(x, p["w_in"])
+    z, xin, bmat, cmat, dtp = torch.split(
+        zxbcdt, [di, di, n, n, zxbcdt.shape[-1] - 2 * di - 2 * n], dim=-1)
+    return z, torch.cat([xin, bmat, cmat], -1), dtp
+
+
+def _ssd_conv_weight(p, cfg: ModelConfig) -> torch.Tensor:
+    if cfg.ssd_split_proj:
+        return torch.cat([p["conv_w_x"], p["conv_w_bc"]], -1)
+    return p["conv_w"]
+
+
+def _segsum(x: torch.Tensor) -> torch.Tensor:
+    """x: (..., L) -> (..., L, L) lower-tri cumulative sums for decay."""
+    l = x.shape[-1]
+    cs = torch.cumsum(x, dim=-1)
+    diff = cs[..., :, None] - cs[..., None, :]
+    ii = torch.arange(l, device=x.device)
+    mask = ii[:, None] >= ii[None, :]
+    return torch.where(mask, diff, torch.tensor(-math.inf, dtype=x.dtype,
+                                                 device=x.device))
+
+
+def ssd_scan(x, dt, a, bmat, cmat, chunk: int):
+    """SSD chunked scan (Dao & Gu 2024), as the JAX package computes it.
+
+    x: (B,S,H,P) dt: (B,S,H) a: (H,) neg-decay, b,c: (B,S,N).
+    Returns y: (B,S,H,P) in x's dtype and the final state (B,H,P,N)
+    fp32. JAX's three-operand einsums are contracted pairwise (the
+    broadcast product of all three would hold (B,C,L,L,H,P)); its
+    inter-chunk ``lax.scan`` is a loop over chunks that carries an fp32
+    state and keeps the state before each chunk."""
+    bsz, s, h, p_dim = x.shape
+    n = bmat.shape[-1]
+    sp = -(-s // chunk) * chunk
+    pad = sp - s
+    x = F.pad(x, (0, 0, 0, 0, 0, pad))
+    dt = F.pad(dt, (0, 0, 0, pad))
+    bmat = F.pad(bmat, (0, 0, 0, pad))
+    cmat = F.pad(cmat, (0, 0, 0, pad))
+    nc = sp // chunk
+
+    xr = x.reshape(bsz, nc, chunk, h, p_dim)
+    dtr = dt.reshape(bsz, nc, chunk, h)
+    br = bmat.reshape(bsz, nc, chunk, n)
+    cr = cmat.reshape(bsz, nc, chunk, n)
+
+    da = dtr * a                                  # (B,C,L,H) decay logs (<=0)
+    dax = xr * dtr[..., None]                     # dt-weighted inputs
+
+    # intra-chunk (quadratic within chunk)
+    lmat = torch.exp(_segsum(da.transpose(2, 3)))           # (B,C,H,L,L)
+    scores = torch.einsum("bcln,bckn->bclk", cr, br)        # (B,C,L,L)
+    y_diag = torch.einsum("bchlk,bckhp->bclhp",
+                          scores[:, :, None] * lmat, dax)
+
+    # chunk-final states
+    rev = torch.flip(torch.cumsum(torch.flip(da, [2]), dim=2), [2])
+    decay_end = torch.exp(rev - da)                          # sum_{l'>l}
+    states = torch.einsum("bcln,bclhp->bchpn", br,
+                          decay_end[..., None] * dax)
+
+    # inter-chunk recurrence: the state before each chunk
+    chunk_decay = torch.exp(torch.sum(da, dim=2))            # (B,C,H)
+    st = torch.zeros((bsz, h, p_dim, n), dtype=F32, device=x.device)
+    prior = []
+    for c in range(nc):
+        prior.append(st)
+        st = st * chunk_decay[:, c, :, None, None] + states[:, c].to(F32)
+    prior = torch.stack(prior, dim=1)                        # (B,C,H,P,N)
+
+    # off-diagonal contribution: carried state into each position
+    decay_in = torch.exp(torch.cumsum(da, dim=2))            # from chunk start
+    y_off = (torch.einsum("bcln,bchpn->bclhp", cr, prior)
+             * decay_in[..., None])
+
+    y = (y_diag + y_off).reshape(bsz, sp, h, p_dim)[:, :s]
+    return y.to(x.dtype), st
+
+
+def _ssd_conv(conv_in, cw, k: int):
+    """Causal depthwise conv via k shifted adds, summed in x's dtype in
+    JAX's order (k is tiny)."""
+    s = conv_in.shape[1]
+    conv = 0
+    for i in range(k):
+        conv = conv + F.pad(conv_in, (0, 0, k - 1 - i, 0))[:, :s] * cw[i]
+    return conv
+
+
+def _ssd_out(p, z, xh, y, x, cfg: ModelConfig):
+    """The skip term, gated norm and out-projection after the scan."""
+    bsz, s = x.shape[:2]
+    y = y + xh.to(F32) * p["d_skip"][None, None, :, None]
+    y = y.reshape(bsz, s, cfg.d_inner).to(x.dtype)
+    y = rmsnorm(y, p["out_norm"]) * _silu(z)
+    return dense(y, p["w_out"])
+
+
+def _softplus(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softplus``: log(1 + e^x) at every x (``F.softplus``
+    returns x itself above its threshold)."""
+    return torch.logaddexp(x, torch.zeros((), dtype=x.dtype,
+                                          device=x.device))
+
+
+def ssd_prefill(p, x, cfg: ModelConfig):
+    """The mamba2 block over a prompt x (B, S, d): returns (out, conv
+    state (B, min(S, k-1), conv_dim) in x's dtype, final SSM state
+    (B, H, P, N) fp32). A prompt shorter than ``conv_k - 1`` tokens keeps
+    ``conv_in[:, S-(k-1):]``, fewer rows than the cache holds, as the
+    JAX package's ``lm._ssd_prefill`` does."""
+    bsz, s, _ = x.shape
+    di, n = cfg.d_inner, cfg.d_state
+    z, conv_in, dtp = _ssd_in_proj(p, x, cfg)
+    k = cfg.conv_k
+    conv = _silu(_ssd_conv(conv_in, _ssd_conv_weight(p, cfg), k))
+    xc, bc, cc = torch.split(conv, [di, n, n], dim=-1)
+    xh = xc.reshape(bsz, s, cfg.ssd_heads, cfg.ssd_headdim)
+    a = -torch.exp(p["a_log"])                               # (H,) < 0
+    dt_full = _softplus(dtp.to(F32) + p["dt_bias"])          # (B,S,H)
+    y, final = ssd_scan(xh, dt_full, a, bc.to(F32), cc.to(F32),
+                        cfg.ssd_chunk)
+    return (_ssd_out(p, z, xh, y, x, cfg), conv_in[:, s - (k - 1):],
+            final)
+
+
+def ssd_block_apply(p, x, cfg: ModelConfig, conv_state=None,
+                    ssm_state=None, decode: bool = False):
+    """Full mamba2 block: in-proj -> conv -> SSD -> gated norm -> out-proj.
+
+    Train/prefill: decode=False, states None -> returns y only.
+    Decode: x is (B,1,d) and the states (B, k-1, conv_dim) and
+    (B, H, P, N); returns (y, new conv state, new SSM state), the update
+    computed in fp32 and the SSM state stored in ``ssm_state``'s dtype.
+    The states passed in are not written."""
+    if not decode:
+        return ssd_prefill(p, x, cfg)[0]
+    bsz = x.shape[0]
+    di, n, h, pd = cfg.d_inner, cfg.d_state, cfg.ssd_heads, cfg.ssd_headdim
+    z, conv_in, dtp = _ssd_in_proj(p, x, cfg)
+    cw = _ssd_conv_weight(p, cfg)
+    hist = torch.cat([conv_state.to(conv_in.dtype), conv_in], dim=1)
+    # JAX's einsum over the k taps: a dot summed in fp32, rounded once
+    conv = (hist.to(F32) * cw.to(F32)).sum(1)
+    conv = _silu(conv.to(conv_in.dtype)[:, None])
+    xc, bc, cc = torch.split(conv, [di, n, n], dim=-1)
+    xh = xc.reshape(bsz, 1, h, pd)
+    a = -torch.exp(p["a_log"])
+    dt1 = _softplus(dtp.to(F32) + p["dt_bias"])[:, 0]        # (B,H)
+    st = ssm_state.to(F32)                                   # (B,H,P,N)
+    da = torch.exp(dt1 * a[None, :])
+    dbx = ((dt1[:, :, None] * xh[:, 0].to(F32))[..., None]
+           * bc[:, 0].to(F32)[:, None, None, :])
+    st = st * da[..., None, None] + dbx
+    y = torch.einsum("bn,bhpn->bhp", cc[:, 0].to(F32), st)
+    out = _ssd_out(p, z, xh, y[:, None], x, cfg)
+    return out, hist[:, 1:], st.to(ssm_state.dtype)
+
+
+def ssd_step(p, x, cfg: ModelConfig, cache: dict):
+    """One decode step of the block through its per-slot state cache
+    {conv, ssm}, written in place; returns (y, cache)."""
+    y, conv, ssm = ssd_block_apply(p, x, cfg, conv_state=cache["conv"],
+                                   ssm_state=cache["ssm"], decode=True)
+    cache["conv"].copy_(conv)
+    cache["ssm"].copy_(ssm)
+    return y, cache
+
+
+def ssd_cache_init(cfg: ModelConfig, batch: int, dtype, device) -> dict:
+    conv_dim = cfg.d_inner + 2 * cfg.d_state
+    return {
+        "conv": torch.zeros((batch, cfg.conv_k - 1, conv_dim), dtype=dtype,
+                            device=device),
+        "ssm": torch.zeros((batch, cfg.ssd_heads, cfg.ssd_headdim,
+                            cfg.d_state),
+                           dtype=getattr(torch, cfg.ssd_state_dtype),
+                           device=device),
+    }
+
+
+# ---------------------------------------------------------------------------
+# Hybrid (hymba): parallel attention + SSD heads, outputs fused
+# ---------------------------------------------------------------------------
+
+def hybrid_init(gen: torch.Generator, cfg: ModelConfig, device) -> dict:
+    dt = _dtype(cfg)
+    return {
+        "attn": attn_init(gen, cfg, device),
+        "ssd": ssd_init(gen, cfg, device),
+        "attn_norm": rmsnorm_init(cfg.d_model, dt, device),
+        "ssd_norm": rmsnorm_init(cfg.d_model, dt, device),
+    }
+
+
+def hybrid_fuse(p, ya, ys):
+    """The two heads' outputs, each normalized, averaged."""
+    return 0.5 * (rmsnorm(ya, p["attn_norm"]) + rmsnorm(ys, p["ssd_norm"]))
+
+
+def hybrid_apply(p, x, cfg: ModelConfig, *, window=None):
+    ya = attn_apply(p["attn"], x, cfg, window=window)
+    ys = ssd_block_apply(p["ssd"], x, cfg)
+    return hybrid_fuse(p, ya, ys)
+
+
+def hybrid_decode(p, x, cfg: ModelConfig, cache, pos):
+    """Decode through the contiguous cache {attn: {k, v}, ssd: {conv,
+    ssm}}, written in place."""
+    ya, _ = attn_decode(p["attn"], x, cfg, cache["attn"], pos)
+    ys, _ = ssd_step(p["ssd"], x, cfg, cache["ssd"])
+    return hybrid_fuse(p, ya, ys), cache
+
+
+def hybrid_decode_paged(p, x, cfg: ModelConfig, cache, pos, page_table,
+                        use_kernel: bool = False):
+    """Hybrid decode: the attention KV goes through the paged pool (and
+    with ``use_kernel``, the paged-attention kernel), the SSM/conv state
+    (no time dim, nothing to page) stays per slot; written in place."""
+    ya, _ = attn_decode_paged(p["attn"], x, cfg, cache["attn"], pos,
+                              page_table, use_kernel)
+    ys, _ = ssd_step(p["ssd"], x, cfg, cache["ssd"])
+    return hybrid_fuse(p, ya, ys), cache

@@ -11,12 +11,14 @@ cache ``k[l]`` is a contiguous slice (the paged-attention kernel takes a
 layer's pool as it is) written in place: attention keeps {k, v},
 contiguous ``(L, B, T, KV, D)`` and paged ``(L, N+1, P, KV, D)``; MLA
 keeps its compressed {c_kv, k_rope}, ``(L, B, T, kvl|rd)`` and
-``(L, N+1, P, kvl|rd)``, with no KV-head axis.
+``(L, N+1, P, kvl|rd)``, with no KV-head axis. SSD keeps per-slot
+states {conv (L, B, k-1, conv_dim), ssm (L, B, H, P, N)} in either
+cache, and hybrid nests both: {attn: {k, v}, ssd: {conv, ssm}}.
 
-The ``attn`` and ``mla`` mixers are ported, with the ``swiglu``,
-``geglu`` and ``moe`` FFNs. SSD and hybrid come with the slice that
-ports the recurrent mixers; musicgen's codebook and internvl2's
-image-token frontends with the frontends slice.
+Every mixer is ported (``attn``, ``mla``, ``ssd``, ``hybrid``), with the
+``swiglu``, ``geglu`` and ``moe`` FFNs and ``ffn="none"``; musicgen's
+codebook and internvl2's image-token frontends come with the frontends
+slice.
 """
 from __future__ import annotations
 
@@ -31,15 +33,6 @@ F32 = torch.float32
 
 
 def _unsupported(cfg: ModelConfig) -> None:
-    if cfg.mixer not in ("attn", "mla"):
-        raise NotImplementedError(
-            f"mixer={cfg.mixer!r} is not ported yet: SSD and hybrid come "
-            "with the next slice, which ports the recurrent mixers and "
-            "their per-slot state in the paged cache")
-    if cfg.ffn not in ("swiglu", "geglu", "moe"):
-        raise NotImplementedError(
-            f"ffn={cfg.ffn!r} is not ported yet: it comes with the next "
-            "slice, which ports the recurrent mixers")
     if cfg.n_codebooks or cfg.n_img_tokens:
         raise NotImplementedError(
             "codebook (musicgen) and image-token (internvl2) frontends "
@@ -50,19 +43,27 @@ def _unsupported(cfg: ModelConfig) -> None:
 # init
 # ---------------------------------------------------------------------------
 
+_MIXER_INIT = {"attn": L.attn_init, "mla": L.mla_init, "ssd": L.ssd_init,
+               "hybrid": L.hybrid_init}
+
+
 def init_layer(gen: torch.Generator, cfg: ModelConfig, device) -> dict:
     _unsupported(cfg)
     dt = getattr(torch, cfg.dtype)
-    mixer = L.mla_init if cfg.mixer == "mla" else L.attn_init
-    ffn = L.moe_init if cfg.ffn == "moe" else L.mlp_init
-    return {"norm1": L.rmsnorm_init(cfg.d_model, dt, device),
-            "mixer": mixer(gen, cfg, device),
-            "norm2": L.rmsnorm_init(cfg.d_model, dt, device),
-            "ffn": ffn(gen, cfg, device)}
+    p = {"norm1": L.rmsnorm_init(cfg.d_model, dt, device),
+         "mixer": _MIXER_INIT[cfg.mixer](gen, cfg, device)}
+    if cfg.ffn != "none":
+        ffn = L.moe_init if cfg.ffn == "moe" else L.mlp_init
+        p["norm2"] = L.rmsnorm_init(cfg.d_model, dt, device)
+        p["ffn"] = ffn(gen, cfg, device)
+    return p
 
 
 def _ffn(lp, x, cfg: ModelConfig):
-    """The residual FFN half of a layer: x + ffn(rmsnorm(x))."""
+    """The residual FFN half of a layer: x + ffn(rmsnorm(x)); x itself
+    where the layer has none (``ffn="none"``)."""
+    if cfg.ffn == "none":
+        return x
     h = L.rmsnorm(x, lp["norm2"])
     f = (L.moe_apply(lp["ffn"], h, cfg) if cfg.ffn == "moe"
          else L.mlp_apply(lp["ffn"], h, cfg))
@@ -70,13 +71,18 @@ def _ffn(lp, x, cfg: ModelConfig):
 
 
 def _stack(per_layer: list) -> dict:
-    """[{leaf: (B, T, ...)}] per layer -> {leaf: (L, B, T, ...)}."""
-    return {k: torch.stack([c[k] for c in per_layer]) for k in per_layer[0]}
+    """[{leaf: (B, ...)}] per layer -> {leaf: (L, B, ...)}, nested
+    dicts (the hybrid cache) stacked leaf by leaf."""
+    return {k: (_stack([c[k] for c in per_layer]) if isinstance(v, dict)
+                else torch.stack([c[k] for c in per_layer]))
+            for k, v in per_layer[0].items()}
 
 
 def _layer_cache(cache: dict, li: int) -> dict:
-    """Layer ``li``'s slice of every stacked cache leaf (views)."""
-    return {k: v[li] for k, v in cache.items()}
+    """Layer ``li``'s slice of every stacked cache leaf (views, each
+    contiguous), nested dicts included."""
+    return {k: (_layer_cache(v, li) if isinstance(v, dict) else v[li])
+            for k, v in cache.items()}
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
@@ -149,15 +155,19 @@ def assemble_inputs(params, batch, cfg: ModelConfig):
 def prefill(params, batch, cfg: ModelConfig, window=None, last_pos=None,
             head=None):
     """Process a full prompt; returns last-position logits (B, V) fp32
-    and the cache in ``cfg.dtype``: {k, v} (L, B, S, KV, D) for
-    attention, {c_kv, k_rope} (L, B, S, kvl|rd) for MLA.
+    and the cache: {k, v} (L, B, S, KV, D) for attention, {c_kv, k_rope}
+    (L, B, S, kvl|rd) for MLA, in ``cfg.dtype``; SSD's {conv, ssm} with
+    the SSM state in fp32, as JAX's prefill leaves it (a prompt shorter
+    than ``conv_k - 1`` tokens leaves a short conv state, as in JAX);
+    hybrid's {attn: {k, v}, ssd: {conv, ssm}}.
 
     ``last_pos`` selects which position's logits to return instead of
     the final one: the bucketed path right-pads prompts to pow2 lengths
     and reads the logits at the real prompt end; causal masking makes
     the right padding invisible to every real position (but pad tokens
-    still take MoE capacity, in JAX too). ``head`` is an optional
-    precomputed :func:`head_f32`."""
+    still take MoE capacity, in JAX too). It is placed as
+    :func:`_last_index` says. ``head`` is an optional precomputed
+    :func:`head_f32`."""
     x, _ = assemble_inputs(params, batch, cfg)
     seqlen = x.shape[1]
     kvs = []
@@ -165,8 +175,18 @@ def prefill(params, batch, cfg: ModelConfig, window=None, last_pos=None,
         x, kv = _prefill_layer(lp, x, cfg, window, seqlen)
         kvs.append(kv)
     hidden = L.rmsnorm(x, params["final_norm"])
-    last = hidden[:, -1] if last_pos is None else hidden[:, int(last_pos)]
+    last = hidden[:, _last_index(last_pos, seqlen)]
     return _logits(last, params, cfg, head), _stack(kvs)
+
+
+def _last_index(last_pos, s: int) -> int:
+    """Where JAX's ``dynamic_slice_in_dim(hidden, last_pos, 1)`` reads:
+    the final position by default; a negative index counts once from the
+    end, then the index is clamped into ``[0, S-1]``."""
+    if last_pos is None:
+        return s - 1
+    i = int(last_pos)
+    return min(max(i + s if i < 0 else i, 0), s - 1)
 
 
 def _prefill_layer(lp, x, cfg: ModelConfig, window, seqlen):
@@ -175,16 +195,24 @@ def _prefill_layer(lp, x, cfg: ModelConfig, window, seqlen):
     b = x.shape[0]
     dt = getattr(torch, cfg.dtype)
     pos = torch.arange(seqlen, device=x.device)
+    mp = lp["mixer"]
     if cfg.mixer == "mla":
-        mix, kv = L.mla_prefill(lp["mixer"], h, cfg, pos, window=window)
+        mix, kv = L.mla_prefill(mp, h, cfg, pos, window=window)
+        kv = {k: v.to(dt) for k, v in kv.items()}
+    elif cfg.mixer == "ssd":
+        mix, conv, ssm = L.ssd_prefill(mp, h, cfg)
+        kv = {"conv": conv, "ssm": ssm}
     else:
-        ap = lp["mixer"]
+        ap = mp["attn"] if cfg.mixer == "hybrid" else mp
         q, k, v = L.attn_qkv(ap, h, cfg, pos)
         o = L.blockwise_attention(q, k, v, causal=True, window=window)
         mix = L.dense(o.reshape(b, seqlen, -1), ap["wo"])
-        kv = {"k": k, "v": v}
-    x = _ffn(lp, x + mix, cfg)
-    return x, {k: v.to(dt) for k, v in kv.items()}
+        kv = {"k": k.to(dt), "v": v.to(dt)}
+        if cfg.mixer == "hybrid":
+            ys, conv, ssm = L.ssd_prefill(mp["ssd"], h, cfg)
+            mix = L.hybrid_fuse(mp, mix, ys)
+            kv = {"attn": kv, "ssd": {"conv": conv, "ssm": ssm}}
+    return _ffn(lp, x + mix, cfg), kv
 
 
 def prefill_partial(params, batch, ctx, cfg: ModelConfig, window=None,
@@ -202,7 +230,12 @@ def prefill_partial(params, batch, ctx, cfg: ModelConfig, window=None,
     runs through :func:`layers.context_attention`, the single-chunk
     mirror of the full prefill's math. The suffix is its own MoE chunk,
     so an MoE layer may route it otherwise than a full prefill (JAX
-    does the same)."""
+    does the same). Only position-indexed caches have a suffix to skip
+    (attn, mla): SSD and hybrid state absorbs every token."""
+    if cfg.mixer not in ("attn", "mla"):
+        raise NotImplementedError(
+            "prefix-cache partial prefill needs a position-indexed cache "
+            f"(attn/mla), not {cfg.mixer!r}")
     x, _ = assemble_inputs(params, batch, cfg)
     seqlen = x.shape[1]
     kvs = []
@@ -211,7 +244,7 @@ def prefill_partial(params, batch, ctx, cfg: ModelConfig, window=None,
                                        window, seqlen, int(start))
         kvs.append(kv)
     hidden = L.rmsnorm(x, params["final_norm"])
-    last = hidden[:, -1] if last_pos is None else hidden[:, int(last_pos)]
+    last = hidden[:, _last_index(last_pos, seqlen)]
     return _logits(last, params, cfg, head), _stack(kvs)
 
 
@@ -246,8 +279,12 @@ def layer_decode(lp, x, cache_l, pos, cfg: ModelConfig):
     """One layer of the contiguous decode step; ``cache_l`` is the
     layer's cache leaves, written in place."""
     h = L.rmsnorm(x, lp["norm1"])
-    decode = L.mla_decode if cfg.mixer == "mla" else L.attn_decode
-    mix, nc = decode(lp["mixer"], h, cfg, cache_l, pos)
+    if cfg.mixer == "ssd":
+        mix, nc = L.ssd_step(lp["mixer"], h, cfg, cache_l)
+    else:
+        decode = {"attn": L.attn_decode, "mla": L.mla_decode,
+                  "hybrid": L.hybrid_decode}[cfg.mixer]
+        mix, nc = decode(lp["mixer"], h, cfg, cache_l, pos)
     return _ffn(lp, x + mix, cfg), nc
 
 
@@ -272,10 +309,14 @@ def layer_decode_paged(lp, x, cache_l, pos, page_table, cfg: ModelConfig,
     written in place. ``use_kernel`` selects the paged-attention kernel
     over the ``paged_gather`` path (tokens match)."""
     h = L.rmsnorm(x, lp["norm1"])
-    decode = (L.mla_decode_paged if cfg.mixer == "mla"
-              else L.attn_decode_paged)
-    mix, nc = decode(lp["mixer"], h, cfg, cache_l, pos, page_table,
-                     use_kernel)
+    if cfg.mixer == "ssd":
+        # pure-state cache: nothing to page, identical to layer_decode
+        mix, nc = L.ssd_step(lp["mixer"], h, cfg, cache_l)
+    else:
+        decode = {"attn": L.attn_decode_paged, "mla": L.mla_decode_paged,
+                  "hybrid": L.hybrid_decode_paged}[cfg.mixer]
+        mix, nc = decode(lp["mixer"], h, cfg, cache_l, pos, page_table,
+                         use_kernel)
     return _ffn(lp, x + mix, cfg), nc
 
 
@@ -300,9 +341,25 @@ def decode_step_paged(params, cache, tokens, pos, page_table,
     return _logits(hidden, params, cfg, head), cache
 
 
+def _zero_layer_cache(cfg: ModelConfig, time_leaves, slots: int, dtype,
+                      device) -> dict:
+    """One layer's zero cache: the attention leaves ``time_leaves()``
+    makes, SSD's per-slot states for ``slots`` slots, or both nested
+    (hybrid)."""
+    if cfg.mixer == "ssd":
+        return L.ssd_cache_init(cfg, slots, dtype, device)
+    one = time_leaves()
+    if cfg.mixer == "hybrid":
+        return {"attn": one,
+                "ssd": L.ssd_cache_init(cfg, slots, dtype, device)}
+    return one
+
+
 def _stacked(cfg: ModelConfig, one: dict) -> dict:
-    """One layer's zero cache repeated on a leading L axis."""
-    return {k: v[None].expand((cfg.n_layers,) + tuple(v.shape)).clone()
+    """One layer's zero cache repeated on a leading L axis, leaf by leaf
+    (a layer's slice of each leaf stays contiguous)."""
+    return {k: (_stacked(cfg, v) if isinstance(v, dict) else
+                v[None].expand((cfg.n_layers,) + tuple(v.shape)).clone())
             for k, v in one.items()}
 
 
@@ -310,10 +367,14 @@ def init_cache(cfg: ModelConfig, batch: int, t: int, dtype,
                device) -> dict:
     """Contiguous decode cache, stacked on a leading L axis: {k, v}
     (L, batch, t, KV, D) for attention, {c_kv, k_rope} (L, batch, t,
-    kvl|rd) for MLA."""
+    kvl|rd) for MLA, SSD's per-slot {conv, ssm} (the SSM state in
+    ``cfg.ssd_state_dtype``), and hybrid's {attn: {k, v}, ssd: {conv,
+    ssm}}."""
     _unsupported(cfg)
     init = L.mla_cache_init if cfg.mixer == "mla" else L.attn_cache_init
-    return _stacked(cfg, init(cfg, batch, t, dtype, device))
+    return _stacked(cfg, _zero_layer_cache(
+        cfg, lambda: init(cfg, batch, t, dtype, device), batch, dtype,
+        device))
 
 
 def init_paged_cache(cfg: ModelConfig, n_pages: int, page_size: int,
@@ -322,9 +383,12 @@ def init_paged_cache(cfg: ModelConfig, n_pages: int, page_size: int,
     (L, n_pages + 1, page_size, ...) shared across slots ({k, v} with a
     (KV, D) row for attention, {c_kv, k_rope} with a kvl / rd row for
     MLA); the +1 is the scratch page inactive slots write and gather
-    through. (State leaves of recurrent mixers, per slot, come with
-    those mixers.)"""
+    through. SSD's state leaves carry no time dim, so they stay per slot,
+    (L, n_slots, ...); hybrid nests its pools and states as
+    :func:`init_cache` does."""
     _unsupported(cfg)
     init = (L.mla_paged_cache_init if cfg.mixer == "mla"
             else L.attn_paged_cache_init)
-    return _stacked(cfg, init(cfg, n_pages + 1, page_size, dtype, device))
+    return _stacked(cfg, _zero_layer_cache(
+        cfg, lambda: init(cfg, n_pages + 1, page_size, dtype, device),
+        n_slots, dtype, device))

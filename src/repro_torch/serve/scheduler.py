@@ -108,6 +108,16 @@ def _pairs(batch_cache: dict, slot_cache: dict):
             yield k, b, slot_cache[k]
 
 
+def _write_slot(b: torch.Tensor, u: torch.Tensor, slot: int) -> None:
+    """Write a request's leaf ``u`` (L, 1, R, ...) into slot ``slot`` of
+    ``b`` (L, B, R', ...), R <= R', anchored at the slot's start, as
+    JAX's ``dynamic_update_slice`` writes it: a shorter leaf (a prompt's
+    time extent; the conv state of a prompt of fewer than ``conv_k - 1``
+    tokens, 1 row of 3) fills the leading rows and leaves the rest as
+    they were."""
+    b[:, slot, :u.shape[2]] = u[:, 0].to(b.dtype)
+
+
 def insert_slot_cache(batch_cache: dict, slot_cache: dict,
                       slot: int) -> dict:
     """Write a prefilled single-request cache into batch slot ``slot``,
@@ -118,7 +128,7 @@ def insert_slot_cache(batch_cache: dict, slot_cache: dict,
     batch cache held — harmless, because decode masks attention to
     ``kpos <= pos`` and overwrites position ``pos`` before first use."""
     for _, b, u in _pairs(batch_cache, slot_cache):
-        b[:, slot, :u.shape[2]] = u[:, 0].to(b.dtype)
+        _write_slot(b, u, slot)
     return batch_cache
 
 
@@ -149,7 +159,8 @@ def insert_paged_cache(batch_cache: dict, slot_cache: dict, phys_pages,
     carries nothing of its previous tenant below the decode position.
     Pad entries of ``phys_pages`` name the scratch page; which of them
     lands there last is unspecified on the card, and nothing reads the
-    scratch page unmasked. State leaves write into batch slot ``slot``.
+    scratch page unmasked. State leaves write into batch slot ``slot``
+    as in :func:`insert_slot_cache`.
     """
     for key, b, u in _pairs(batch_cache, slot_cache):
         if key in _TIME_KEYS and u.ndim >= 3:
@@ -161,7 +172,7 @@ def insert_paged_cache(batch_cache: dict, slot_cache: dict, phys_pages,
                                     + tuple(u.shape[3:]))
             b[:, phys] = pages.to(b.dtype)
         else:
-            b[:, slot] = u[:, 0].to(b.dtype)
+            _write_slot(b, u, slot)
     return batch_cache
 
 
@@ -178,7 +189,8 @@ def insert_paged_span(batch_cache: dict, suffix_cache: dict, row,
     keeps its shared head and gains the suffix tail. Padding positions
     route to the scratch page (the pool's last page), several of them to
     the same row of it; nothing reads the scratch page unmasked. State
-    leaves write into batch slot ``slot`` whole."""
+    leaves write into batch slot ``slot`` as in
+    :func:`insert_slot_cache`."""
     for key, b, u in _pairs(batch_cache, suffix_cache):
         if key in _TIME_KEYS and u.ndim >= 3:
             # b: (L, N_pool, P, ...) pool; u: (L, 1, S_pad, ...) suffix
@@ -192,7 +204,7 @@ def insert_paged_span(batch_cache: dict, suffix_cache: dict, row,
                                torch.full_like(idx, scratch))
             b[:, page, posv % psz] = u[:, 0].to(b.dtype)
         else:
-            b[:, slot] = u[:, 0].to(b.dtype)
+            _write_slot(b, u, slot)
     return batch_cache
 
 

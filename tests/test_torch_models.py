@@ -18,33 +18,45 @@ import torch
 from repro import configs as j_configs
 from repro.models import ModelConfig as JModelConfig
 from repro.models import config as j_config
+from repro.models import decode_step as j_decode_contig
 from repro.models import decode_step_paged as j_decode
 from repro.models import init_paged_cache as j_cache
 from repro.models import init_params as j_init
 from repro.models import layers as JL
 from repro.models import prefill as j_prefill
+from repro.models import prefill_partial as j_prefill_partial
 from repro.serve import PagePool as JPagePool
+from repro.serve.scheduler import grow_cache as j_grow
 from repro_torch import configs as t_configs
 from repro_torch.convert import lm_params_from_numpy
 from repro_torch.models import (
-    ModelConfig, config as t_config, decode_step_paged, init_paged_cache,
-    init_params, layers as TL, prefill,
+    ModelConfig, config as t_config, decode_step, decode_step_paged,
+    init_paged_cache, init_params, layers as TL, prefill, prefill_partial,
 )
 from repro_torch.serve import PagePool
+from repro_torch.serve.scheduler import grow_cache as t_grow
 
 ATTN = dict(name="tiny-pa-attn", mixer="attn", ffn="swiglu", n_layers=2,
             d_model=32, n_heads=4, n_kv=2, head_dim=16, d_ff=64, vocab=50,
             dtype="float32", logit_chunk=16, remat=False)
 WIN = dict(ATTN, name="tiny-pa-win", window=6)
 CFGS = {"gemma-2b-reduced": None, "attn": ATTN, "win": WIN}
+# the recurrent mixers on ATTN's widths, with every FFN they serve with
+_SSD = dict(d_state=8, ssd_headdim=16, ssd_chunk=4, n_experts=4, top_k=2,
+            moe_dff=32, moe_chunk=8)
+RECURRENT = {f"{m}-{f}": dict(ATTN, name=f"tiny-{m}-{f}", mixer=m, ffn=f,
+                              **_SSD)
+             for m, f in (("ssd", "moe"), ("ssd", "none"),
+                          ("hybrid", "swiglu"), ("hybrid", "moe"))}
 
 
 def _cfgs(name):
     """The same configuration in both packages."""
-    if CFGS[name] is None:
+    spec = {**CFGS, **RECURRENT}[name]
+    if spec is None:
         return (j_configs.get_reduced("gemma-2b"),
                 t_configs.get_reduced("gemma-2b"))
-    return JModelConfig(**CFGS[name]), ModelConfig(**CFGS[name])
+    return JModelConfig(**spec), ModelConfig(**spec)
 
 
 @pytest.fixture(scope="module", params=list(CFGS))
@@ -157,9 +169,15 @@ def test_paged_write_and_gather_match_jax():
 # the model
 # ---------------------------------------------------------------------------
 
-def test_init_params_shapes_match_jax(model):
-    _, jcfg, tcfg, jp, tp = model
+@pytest.mark.parametrize("name", list(CFGS) + list(RECURRENT))
+def test_init_params_shapes_match_jax(name):
+    """The port's own init gives JAX's tree, shapes and dtypes, for the
+    attention configs and the recurrent mixers (``ffn="none"``: no
+    norm2/ffn; SSD's a_log/d_skip/dt_bias fp32)."""
+    jcfg, tcfg = _cfgs(name)
+    jp = jax.eval_shape(lambda: j_init(jax.random.PRNGKey(0), jcfg))
     mine = init_params(tcfg, torch.Generator().manual_seed(0), device="cpu")
+    assert set(mine["layers"][0]) == set(jp["layers"])
     assert len(mine["layers"]) == jcfg.n_layers
     flat = jax.tree_util.tree_flatten_with_path(jp)[0]
     for path, leaf in flat:
@@ -177,15 +195,83 @@ def test_init_params_shapes_match_jax(model):
         assert str(t.dtype).split(".")[-1] == str(leaf.dtype)
 
 
-@pytest.mark.parametrize("mixer,ffn", [("ssd", "moe"), ("ssd", "none"),
-                                       ("hybrid", "swiglu"),
-                                       ("hybrid", "moe")])
-def test_other_mixers_and_ffns_raise(mixer, ffn):
-    """MLA and MoE are ported; the recurrent mixers raise, naming the
-    slice that brings them."""
-    cfg = ModelConfig(**dict(ATTN, mixer=mixer, ffn=ffn))
-    with pytest.raises(NotImplementedError, match="next slice"):
-        init_params(cfg, torch.Generator(), device="cpu")
+def _leaf_pairs(tc, jc):
+    for path, j in jax.tree_util.tree_flatten_with_path(jc)[0]:
+        t = tc
+        for p in path:
+            t = t[p.key]
+        yield t, j
+
+
+@pytest.mark.parametrize("name", list(RECURRENT))
+def test_recurrent_mixers_match_jax(name):
+    """SSD and hybrid with each FFN they serve with: prefill over 11
+    tokens (chunk 4: three chunks, the last partial), then a contiguous
+    and a paged (gather) decode step from the prefill's cache, logits
+    and every cache leaf against JAX's (states stored in bf16 at one bf16
+    ulp, 1e-2: their fp32 update agrees at 2e-5)."""
+    jcfg, tcfg = _cfgs(name)
+    jp = j_init(jax.random.PRNGKey(0), jcfg)
+    tp = lm_params_from_numpy(jax.tree.map(np.asarray, jp), device="cpu")
+    toks = np.random.default_rng(14).integers(0, jcfg.vocab, size=(2, 11))
+    jl, jc = j_prefill(jp, {"tokens": jnp.asarray(toks)}, jcfg)
+    tl, tc = prefill(tp, {"tokens": torch.from_numpy(toks)}, tcfg)
+    _close(tl, jl)
+    for t, j in _leaf_pairs(tc, jc):
+        assert tuple(t.shape) == j.shape
+        _close(t, j)
+    nxt = np.argmax(np.asarray(jl), -1)[:, None]
+    jc, tc = j_grow(jc, 1), t_grow(tc, 1)
+    jl, jc = j_decode_contig(jp, jc, jnp.asarray(nxt), 11, jcfg)
+    tl, tc = decode_step(tp, tc, torch.from_numpy(nxt), 11, tcfg)
+    _close(tl, jl)
+    for t, j in _leaf_pairs(tc, jc):
+        _close(t, j, 1e-2 if t.dtype == torch.bfloat16 else 2e-5)
+    jpool = JPagePool(4, 10, 2, 3)
+    tpool = PagePool(4, 10, 2, 3, device="cpu")
+    for slot, p in enumerate((7, 2)):
+        for pool in (jpool, tpool):
+            pool.reserve(slot, 12)
+            pool.ensure(slot, p + 1)
+    jcache = j_cache(jcfg, 10, 4, 2, jnp.float32)
+    tcache = init_paged_cache(tcfg, 10, 4, 2, torch.float32, "cpu")
+    pos = np.asarray([7, 2], np.int32)
+    jl, jnew = j_decode(jp, jcache, jnp.asarray(nxt), jnp.asarray(pos),
+                        jpool.device_table(), jcfg)
+    tl, tnew = decode_step_paged(tp, tcache, torch.from_numpy(nxt),
+                                 torch.from_numpy(pos), tpool.device_table(),
+                                 tcfg)
+    _close(tl, jl)
+    for t, j in _leaf_pairs(tnew, jnew):
+        assert tuple(t.shape) == j.shape
+        _close(t, j, 1e-2 if t.dtype == torch.bfloat16 else 2e-5)
+
+
+@pytest.mark.parametrize("last_pos", [8, 11, -9])
+def test_prefill_last_pos_outside_the_prompt_matches_jax(last_pos):
+    """JAX places ``last_pos`` as ``dynamic_slice_in_dim`` does: a
+    negative index counts once from the end, then clamps into
+    [0, S-1]. An 8-token prompt: 8 and 11 read position 7, -9 position
+    0; prefill and the partial prefill (a 4-token context, 8-token
+    suffix) both."""
+    jcfg, tcfg = _cfgs("gemma-2b-reduced")
+    jp = j_init(jax.random.PRNGKey(0), jcfg)
+    tp = lm_params_from_numpy(jax.tree.map(np.asarray, jp), device="cpu")
+    toks = np.random.default_rng(15).integers(0, jcfg.vocab, size=(1, 12))
+    jl, jc = j_prefill(jp, {"tokens": jnp.asarray(toks[:, :8])}, jcfg,
+                       last_pos=last_pos)
+    tl, _ = prefill(tp, {"tokens": torch.from_numpy(toks[:, :8])}, tcfg,
+                    last_pos=last_pos)
+    _close(tl, jl)
+    _, ctx = j_prefill(jp, {"tokens": jnp.asarray(toks[:, :4])}, jcfg)
+    suffix = toks[:, 4:]
+    jl, _ = j_prefill_partial(jp, {"tokens": jnp.asarray(suffix)}, ctx,
+                              jcfg, start=4, last_pos=last_pos)
+    tl, _ = prefill_partial(tp, {"tokens": torch.from_numpy(suffix)},
+                            {k: torch.from_numpy(np.array(v))
+                             for k, v in ctx.items()},
+                            tcfg, start=4, last_pos=last_pos)
+    _close(tl, jl)
 
 
 @pytest.mark.parametrize("last_pos", [None, 7])

@@ -42,6 +42,11 @@ CASES = {
     "gqa-rep-3": (3, 6, 2, 16, 16, 0, 4, 10, T3, [11, 0, 5], None),
     "pos-before-every-key": (3, 4, 2, 8, 8, 0, 4, 10, T3, [-1, 3, 0],
                              None),
+    # hymba-1.5b's attention: 25 query heads over 5 KV heads (rep 5, an
+    # odd number of heads per CTA), head dim 64, pages of 16
+    "hymba-25-over-5": (4, 25, 5, 64, 64, 0, 16, 13,
+                        [[0, 1, 2], [3, 4, 5], [6, 7, 8], [9, 12, 12]],
+                        [47, 16, 31, 15], None),
 }
 
 
@@ -135,6 +140,9 @@ PLANNED = {
     "rope-16-heads": (3, 16, 1, 16, 8, 4, 3),
     "max-pages-1": (3, 2, 1, 16, 0, 8, 1),
     "split-edges": (2, 4, 2, 64, 0, 16, 24),
+    "hymba-25-over-5-heads": (4, 5, 5, 64, 0, 16, 65),
+    "hymba-generate-twin": (4, 5, 5, 64, 0, 16, 18),
+    "hymba-short-prompts": (4, 5, 5, 64, 0, 16, 1),
 }
 
 

@@ -7,8 +7,8 @@ with the paged-attention kernel off and on (on the CPU the kernel path
 runs its plain version), for reduced gemma-2b and tests/test_paged_attn.py's
 ``ATTN`` (n_kv=2) and ``WIN`` (window=6) configs. Also: prompt bucketing
 never changes tokens, one slot evicted and refilled decodes each request
-as alone, the scheduler's stats equal JAX's, and the cache helpers
-equal JAX's."""
+as alone, the scheduler's stats equal JAX's, the cache helpers equal
+JAX's, and reduced mamba2-370m and hymba-1.5b serve as in JAX."""
 import dataclasses
 
 import jax
@@ -222,15 +222,36 @@ def test_sampling_at_temperature_draws_from_the_generator(gemma):
     assert any(run(s) != a for s in (1, 2, 3))
 
 
+@pytest.mark.parametrize("arch", ["hymba-1.5b", "mamba2-370m"])
+def test_recurrent_configs_serve_like_jax(arch):
+    """The SSD and hybrid configs serve through the paged engine with the
+    kernel on, as JAX's engine serves them: tokens and stats equal
+    (tests/test_torch_serve_ssd.py holds every other path)."""
+    jcfg, tcfg = j_configs.get_reduced(arch), t_configs.get_reduced(arch)
+    jp = j_init(jax.random.PRNGKey(0), jcfg)
+    tp = lm_params_from_numpy(jax.tree.map(np.asarray, jp), device="cpu")
+    trace = _trace(tcfg.vocab, (3, 6, 6), (4, 3, 2), (0, 0, 1), 16)
+    engine = dict(n_slots=2, paged=True, page_size=4, use_kernel=True)
+    want = j_serve(jp, jcfg, [
+        JRequest(rid=i, tokens=p, max_new_tokens=m, arrival=a)
+        for i, (p, m, a) in enumerate(trace)], JEngineConfig(**engine))
+    got = serve_continuous(tp, tcfg, [
+        Request(rid=i, tokens=p, max_new_tokens=m, arrival=a)
+        for i, (p, m, a) in enumerate(trace)], EngineConfig(**engine),
+        device="cpu")
+    assert got.tokens == {k: list(v) for k, v in want.tokens.items()}
+    assert {k: v for k, v in got.stats.items() if k not in _TIMED} \
+        == {k: v for k, v in want.stats.items() if k not in _TIMED}
+
+
 @pytest.mark.parametrize("arch,match", [
-    ("hymba-1.5b", "hybrid"),
-    ("mamba2-370m", "ssd"),
     ("internvl2-2b", "image-token"),
 ])
 def test_unported_options_raise(gemma, arch, match):
-    """What the port still lacks raises: SSD and hybrid and the
-    codebook/image-token frontends wait for later slices (MLA and MoE
-    serve since their port, tests/test_torch_serve_mla_moe.py)."""
+    """What the port still lacks raises: the codebook/image-token
+    frontends wait for a later slice (MLA and MoE serve since their port,
+    tests/test_torch_serve_mla_moe.py; SSD and hybrid since theirs,
+    tests/test_torch_serve_ssd.py)."""
     _, _, _, tp = gemma
     reqs = [Request(rid=0, tokens=np.zeros(3, np.int64), max_new_tokens=2)]
     with pytest.raises(NotImplementedError, match=match):
