@@ -59,7 +59,11 @@ Phases, each of which raises (and the script exits nonzero) on failure:
    ``scaled_dot_product_attention`` (with and without the gather of the
    pages) and its bound at the run's busiest decode step, in the same
    three ways; the kernels one call launches and their grids are read
-   from the profiler's trace.
+   from the profiler's trace. The same timing phase takes B2 at
+   deepseek-v2-236b's MLA shape and hymba-1.5b's attention shape, at the
+   busiest steps of their traces replayed on the host (phases 8 and 9
+   check the replays against their runs): late in a long run the
+   profiler drops kernels from its traces.
 7. The rest of the dense-attention serve path, on the same gemma-2b
    weights (B2's launch count is read around each path: 2 x n_layers x
    single-query paged decode steps, and 0 where a path runs none):
@@ -97,8 +101,8 @@ Phases, each of which raises (and the script exits nonzero) on failure:
    path's tokens with at least 7 hits, and on/off agreement is printed
    (a suffix is its own MoE chunk); ``generate`` and speculative serving
    (rate 0) print their speed and agreement. Per dtype: metrics, a
-   decode-step profile and peak memory; in bf16, B2 timed at the busiest
-   step against its bound and gather + SDPA (backend printed).
+   decode-step profile and peak memory (B2 at MLA's shape is timed in
+   phase 6).
 9. The SSD and hybrid slice (``[phase ssd]``), after deepseek is freed:
    hymba-1.5b (32 layers, d_model 1600, attention of 25 heads over 5 KV
    heads of 64 beside 25 SSD heads, SwiGLU) and mamba2-370m (48 layers,
@@ -115,8 +119,40 @@ Phases, each of which raises (and the script exits nonzero) on failure:
    agreement with paged serving (``generate`` carries an fp32 SSM state,
    serving a bf16 one, as in JAX); in bf16 paged serving's metrics, a
    decode-step profile and peak memory; hymba's B2 on the bf16 layers'
-   inputs and timed at its shape against its bound and gather + SDPA.
+   inputs (timed at its shape in phase 6).
    B2's kernel phase also holds it at hymba's shape (5 heads per CTA).
+10. Disaggregated serving (``[phase disagg]``), before gemma-2b is
+   freed, on its weights: ``serve_disaggregated`` on the LM trace in
+   fp32 through B2 and through the gather path, its tokens equal to
+   paged serving's, B2's launches equal to the paged run's, 8 handoffs
+   mapping pages; the prefix trace through both tiers, tokens equal with
+   the cache on and off and to ``serve_continuous``'s, its hits equal and
+   fewer prefill tokens; then in bf16 paged serving and the tiers on the
+   LM trace through B2, twice each in turns (paged, disagg, disagg,
+   paged), each step's wall and each request's TTFT (from its arrival on
+   the scheduler's clock; arrival 0 is the engine's call) read by the
+   same clocks for both, with handoffs and handoff pages. B2's kernel phase also holds
+   it at internvl2-2b's shape (16 heads over 8 of 128).
+11. The router (``[phase router]``): ``Router(2)`` over
+   ``serve_continuous`` and over ``serve_disaggregated`` on the LM trace
+   in fp32 through B2, tokens equal to one engine's, both replicas
+   given requests, B2's launches 2 x 18 x the replicas' decode steps;
+   printed apart, ``simulate_replicas``' host replay of both policies
+   (TTFT and latency percentiles at the measured bf16 step p50).
+12. The frontends (``[phase frontends]``), after the SSD phase:
+   musicgen-medium (48 layers, d_model 1536, 4 codebooks of 2048) and
+   internvl2-2b (24 layers, d_model 2048, 16 heads over 8 KV heads of
+   128, 256 image tokens from stub embeddings drawn from a seeded
+   generator) at full width and depth, random weights from a seeded
+   generator, fp32 then bf16. musicgen through ``generate`` (4 x 256
+   prompt tokens x 4 codebooks, 32 new tokens, output (4, 288, 4));
+   internvl2 through ``prefill`` and 31 greedy contiguous
+   ``decode_step`` calls. In fp32, at new tokens 0, 8 and 31, a prefill
+   of the prompt and the tokens before picks, greedy, the token emitted,
+   from logits within 1e-4 of the decode step's. In bf16: ms per token,
+   a decode-step profile (kernels, the device's busy share; every
+   decode-step profile of the script must record each kernel a whole
+   number of times per step) and peak memory. No kernel runs on these contiguous paths (B2's launches 0).
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Without CUDA the script
@@ -124,6 +160,7 @@ exits nonzero and prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import json
@@ -155,11 +192,13 @@ from repro_torch.models import lm as LM  # noqa: E402
 from repro_torch.obs import metrics as obs_metrics  # noqa: E402
 from repro_torch.obs import trace as obs_trace  # noqa: E402
 from repro_torch.serve import (  # noqa: E402
-    EngineConfig, PagePool, Request, SlotScheduler, bucket_len,
+    EngineConfig, PagePool, Request, Router, SlotScheduler, bucket_len,
     derive_draft_params, generate, rnn_serve_frames, serve_continuous,
+    serve_disaggregated, simulate_replicas,
 )
+from repro_torch.serve import engine as serve_engine  # noqa: E402
 from repro_torch.serve.scheduler import (  # noqa: E402
-    fit_cache_len, insert_paged_cache,
+    fit_cache_len, grow_cache, insert_paged_cache,
 )
 
 SEED = 0
@@ -231,6 +270,11 @@ DS_MAX_NEW = 32
 # the SSD and hybrid slice, at full width and depth
 SSD_ARCHS = ("hymba-1.5b", "mamba2-370m")
 SHORT_LENS = (1, 2)        # shorter than conv_k - 1: a 1-row conv state
+# the frontends, at full width and depth: GEN_SHAPE prompts (x 4 codebooks
+# for musicgen, after 256 stub image tokens for internvl2), MAX_NEW tokens
+FRONTEND_ARCHS = ("musicgen-medium", "internvl2-2b")
+# new tokens held against a prefill of the prompt and every token before
+CHECK_AT = (0, 8, 31)
 
 
 def card_info() -> str:
@@ -726,7 +770,7 @@ def exact_check(label, case, out, ref) -> None:
 
 # cases of fp32 pools also held against the answer in fp64
 EXACT_CASES = ("MLA 128 heads, rope, D 512 + 64", "gemma-2b decode shape",
-               "hymba-1.5b decode shape")
+               "hymba-1.5b decode shape", "internvl2-2b decode shape")
 
 
 def compare_paged(label, case, exact=False) -> float:
@@ -768,7 +812,7 @@ def _slot_table(rng, pos_list, psz, max_pages):
 
 def paged_kernel_phase(dev) -> dict:
     """B2 kernel vs plain version; returns the max abs errors at
-    gemma-2b's and hymba-1.5b's decode shapes."""
+    gemma-2b's, hymba-1.5b's and internvl2-2b's decode shapes."""
     rng = np.random.default_rng(SEED + 3)
     t3 = [[0, 1, 2], [3, 4, 9], [5, 6, 7]]
     cases = {
@@ -849,12 +893,16 @@ def paged_kernel_phase(dev) -> dict:
     tab, n = _slot_table(rng, gemma, 16, 65)
     cases["hymba-1.5b decode shape"] = dict(b=4, h=25, kv=5, d=64, psz=16,
                                             n_pages=n, table=tab, pos=gemma)
+    # internvl2-2b's attention: 16 heads over 8 KV heads of 128
+    tab, n = _slot_table(rng, gemma, 16, 65)
+    cases["internvl2-2b decode shape"] = dict(
+        b=4, h=16, kv=8, d=128, psz=16, n_pages=n, table=tab, pos=gemma)
     table, pos, n, shared = shared_page_snapshot(get_config(ARCH).vocab)
     cases[f"prefix trace, {shared} pages mapped by several slots"] = dict(
         b=len(pos), n_pages=n, table=table, pos=pos.tolist(), **gem)
     f32, bf16 = torch.float32, torch.bfloat16
     n_cmp, worst = 0, {f32: (0.0, ""), bf16: (0.0, "")}
-    err_at = {"gemma": 0.0, "hymba": 0.0}
+    err_at = {"gemma": 0.0, "hymba": 0.0, "internvl2": 0.0}
     for label, kw in cases.items():
         case = paged_case(rng, dev, **kw)
         for pool_dt, q_dt in ((f32, f32), (bf16, bf16), (bf16, f32)):
@@ -865,7 +913,8 @@ def paged_kernel_phase(dev) -> dict:
             n_cmp += 1
             worst[pool_dt] = max(worst[pool_dt], (err, label))
             model = ("gemma" if label.startswith(("gemma", "prefix trace"))
-                     else "hymba" if label.startswith("hymba") else None)
+                     else label.split("-")[0] if label.startswith(
+                         ("hymba", "internvl2")) else None)
             if model:
                 err_at[model] = max(err_at[model], err)
                 print(f"  {label}, pools {pool_dt}, q {q_dt}: max abs err "
@@ -873,7 +922,8 @@ def paged_kernel_phase(dev) -> dict:
     print(f"paged kernel phase: {n_cmp} comparisons passed (tol "
           f"{PAGED_TOL[f32]:g} fp32 pools, {PAGED_TOL[bf16]:g} bf16 pools); "
           f"max abs err at gemma-2b's shape (own and shared-page tables) "
-          f"{err_at['gemma']:.3e}, at hymba-1.5b's {err_at['hymba']:.3e}; "
+          f"{err_at['gemma']:.3e}, at hymba-1.5b's {err_at['hymba']:.3e}, "
+          f"at internvl2-2b's {err_at['internvl2']:.3e}; "
           f"over all "
           f"cases {worst[f32][0]:.3e} with fp32 pools ({worst[f32][1]}), "
           f"{worst[bf16][0]:.3e} with bf16 pools ({worst[bf16][1]})")
@@ -1170,7 +1220,7 @@ def lm_slice_phase(dev) -> dict:
               f": {', '.join(f'{d:.1f}' for d in durs)} us")
     out.update(
         cfg=cfg16, params=p16, steps=steps, cfg32=cfg32, params32=p32,
-        tokens32=g32[0].tokens,
+        tokens32=g32[0].tokens, launches32=k32[1],
         launches=k32[1] + k16[1], steady_tokens_per_sec=res.stats[
             "steady_tokens_per_sec"],
         step_p50_us=step["p50"], step_p99_us=step["p99"],
@@ -1320,7 +1370,7 @@ def prefix_phase(lm) -> dict:
             same_tokens("prefix cache on vs off", cfg, params, reqs,
                         on.tokens, off.tokens)
             print("  fp32 tokens with the prefix cache equal those without")
-            out.update(hits=on.stats["prefix_hits"],
+            out.update(hits=on.stats["prefix_hits"], tokens_on=on.tokens,
                        shared_pages=on.stats["shared_pages"],
                        prefill_on=on.stats["prefill_tokens"],
                        prefill_off=off.stats["prefill_tokens"])
@@ -1395,15 +1445,17 @@ def build_deepseek(dtype: str, dev):
     return cfg, params
 
 
-def serve_run(what, cfg, params, reqs, engine, observe=False):
-    """One serve run of a trace, B2's launches held to 2 x layers x
+def serve_run(what, cfg, params, reqs, engine, observe=False,
+              serve=serve_continuous):
+    """One run of a trace through ``serve`` (``serve_continuous`` or
+    ``serve_disaggregated``), B2's launches held to 2 x layers x
     single-query paged steps (0 off the kernel path, and for SSD, which
     has no attention)."""
     if observe:
         obs_trace.enable()
         obs_metrics.enable()
     paged_attn.LAUNCHES = 0
-    res = serve_continuous(params, cfg, reqs, engine)
+    res = serve(params, cfg, reqs, engine)
     single = (engine.paged and engine.use_kernel
               and not engine.speculative and cfg.mixer != "ssd")
     launches = b2_launches(what, cfg, res, use_kernel=single)
@@ -1609,21 +1661,9 @@ def deepseek_phase(dev) -> dict:
         if dtype == "float32":
             out["launches"] += deepseek_fp32_paths(cfg, params, k.tokens)
         else:
-            steps = replay_positions(cfg.vocab, reqs)
-            if len(steps) != k.stats["decode_steps"]:
-                raise AssertionError(f"replayed {len(steps)} decode steps, "
-                                     f"the run took "
-                                     f"{k.stats['decode_steps']}")
-            pos_h, active = max(steps,
-                                key=lambda s: int((s[0] + 1)[s[1]].sum()))
-            max_pages = -(-max(r.prompt_len + r.max_new_tokens
-                               for r in reqs) // LM_ENGINE.page_size)
-            out["timing"] = b2_timing(
-                f"{DS_ARCH} MLA", pos_h, active, dev, h=cfg.n_heads, kv=1,
-                d=cfg.kv_lora, d2=cfg.rope_head_dim,
-                scale=1.0 / math.sqrt(cfg.hd + cfg.rope_head_dim),
-                psz=LM_ENGINE.page_size, max_pages=max_pages,
-                q_dtype=torch.float32)
+            # B2 was timed at this trace's busiest step, replayed on the
+            # host, in [phase B2 timing]
+            replay_matches(cfg.vocab, reqs, k)
         print(f"  {DS_ARCH} {dtype}: peak memory "
               f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
         del params, state, k, g
@@ -1740,19 +1780,7 @@ def ssd_phase(dev) -> dict:
                 cfg16, p16, state, "hybrid attention")
         met.update(decode_profile(f"{arch} bfloat16", cfg16, p16, state))
         if hybrid:
-            steps = replay_positions(cfg16.vocab, reqs)
-            if len(steps) != k16.stats["decode_steps"]:
-                raise AssertionError(f"replayed {len(steps)} decode steps, "
-                                     f"the run took "
-                                     f"{k16.stats['decode_steps']}")
-            pos_h, active = max(steps,
-                                key=lambda s: int((s[0] + 1)[s[1]].sum()))
-            max_pages = -(-max(r.prompt_len + r.max_new_tokens
-                               for r in reqs) // LM_ENGINE.page_size)
-            out["timing"] = b2_timing(
-                f"{arch} attention", pos_h, active, dev, h=cfg16.n_heads,
-                kv=cfg16.n_kv, d=cfg16.hd, psz=LM_ENGINE.page_size,
-                max_pages=max_pages)
+            replay_matches(cfg16.vocab, reqs, k16)
         met["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
         print(f"  {arch}: peak memory {met['peak_gb']:.2f} GB")
         out[arch] = met
@@ -1762,45 +1790,460 @@ def ssd_phase(dev) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# disaggregated serving and the router, on gemma-2b
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def serve_clocks(reqs):
+    """Host clocks read the same way around either engine: each paged
+    decode step's wall (the step synchronised) and each request's TTFT,
+    from the moment the scheduler's step clock reached its arrival to its
+    first token (``SlotScheduler.started``). The clock reaches step 0
+    when the block is entered and step k when decode step k ends; a
+    request started at a clock that is not the count of steps run (an
+    idle tick) raises. Yields a dict filled when the block ends:
+    ``step_us`` and ``ttft_us`` (lists)."""
+    runner = serve_engine._Runner
+    step_paged, started = runner.step_paged, SlotScheduler.started
+    ends, first = [time.perf_counter_ns()], {}
+    out = {"step_us": [], "ttft_us": []}
+
+    def timed_step(self, *args, **kw):
+        t0 = time.perf_counter_ns()
+        res = step_paged(self, *args, **kw)
+        torch.cuda.synchronize()
+        ends.append(time.perf_counter_ns())
+        out["step_us"].append((ends[-1] - t0) / 1e3)
+        return res
+
+    def timed_started(self, slot, token):
+        if self.now != len(ends) - 1:
+            raise AssertionError(f"scheduler clock {self.now} after "
+                                 f"{len(ends) - 1} decode steps")
+        first[self.slot_rids()[slot]] = time.perf_counter_ns()
+        return started(self, slot, token)
+
+    runner.step_paged, SlotScheduler.started = timed_step, timed_started
+    try:
+        yield out
+    finally:
+        runner.step_paged, SlotScheduler.started = step_paged, started
+    arrival = {r.rid: r.arrival for r in reqs}
+    out["ttft_us"] = [(t - ends[arrival[rid]]) / 1e3
+                      for rid, t in first.items()]
+
+
+def clocked_metrics(what, runs, clocks) -> dict:
+    """Serving metrics over ``runs`` of one engine, their clocks pooled."""
+    steps = [t for c in clocks for t in c["step_us"]]
+    ttft = [t for c in clocks for t in c["ttft_us"]]
+    out = {"ms_per_token": statistics.mean(_per_token_ms(r) for r in runs),
+           "steady_tokens_per_sec": statistics.mean(
+               r.stats["steady_tokens_per_sec"] for r in runs),
+           "step_p50_us": float(np.percentile(steps, 50)),
+           "step_p99_us": float(np.percentile(steps, 99)),
+           "ttft_p50_us": float(np.percentile(ttft, 50)),
+           "ttft_p99_us": float(np.percentile(ttft, 99))}
+    print(f"  {what} metrics over {len(runs)} runs: {out['ms_per_token']:.2f}"
+          f" ms per generated token (wall, prefill included), steady "
+          f"{out['steady_tokens_per_sec']:.3f} tok/s, decode step wall p50 "
+          f"{out['step_p50_us']:.1f} us, p99 {out['step_p99_us']:.1f} us "
+          f"over {len(steps)} steps; TTFT from arrival p50 "
+          f"{out['ttft_p50_us']:.1f} us, p99 {out['ttft_p99_us']:.1f} us "
+          f"over {len(ttft)} requests")
+    return out
+
+
+def disagg_phase(lm, px) -> dict:
+    """gemma-2b through the prefill and decode tiers: fp32 tokens equal
+    paged serving's through B2 and through the gather path, B2's
+    launches equal the paged run's; the prefix trace through both tiers;
+    bf16 metrics beside paged serving's, read by the same clocks."""
+    cfg, params = lm["cfg32"], lm["params32"]
+    reqs = lm_requests(cfg.vocab)
+    out = {"launches": 0}
+    for name, engine in (("B2", LM_ENGINE.replace(use_kernel=True)),
+                         ("gather", LM_ENGINE)):
+        res, n, _ = serve_run(f"disagg fp32, {name}", cfg, params, reqs,
+                              engine, serve=serve_disaggregated)
+        same_tokens(f"disagg {name} vs paged serving", cfg, params, reqs,
+                    res.tokens, lm["tokens32"])
+        if res.stats["handoffs"] != len(reqs) \
+                or res.stats["handoff_pages"] <= 0:
+            raise AssertionError(f"disagg {name}: {res.stats['handoffs']} "
+                                 f"handoffs, {res.stats['handoff_pages']} "
+                                 f"pages")
+        if name == "B2":
+            if n != lm["launches32"]:
+                raise AssertionError(f"disagg: B2 launched {n} kernels, "
+                                     f"the paged run {lm['launches32']}")
+            out["launches"] += n
+            out.update(decode_steps=res.stats["decode_steps"],
+                       handoffs=res.stats["handoffs"],
+                       handoff_pages=res.stats["handoff_pages"])
+    print(f"  disagg fp32: B2 and gather tokens equal paged serving's; B2 "
+          f"launches {out['launches']} = the paged run's; "
+          f"{out['handoffs']} handoffs mapping {out['handoff_pages']} pages")
+    preq = prefix_requests(cfg.vocab)
+    runs = {}
+    for on in (True, False):
+        runs[on], n, _ = serve_run(
+            f"disagg prefix_cache={on} fp32, B2", cfg, params, preq,
+            PREFIX_ENGINE.replace(prefix_cache=on),
+            serve=serve_disaggregated)
+        out["launches"] += n
+    on, off = runs[True], runs[False]
+    same_tokens("disagg prefix cache on vs off", cfg, params, preq,
+                on.tokens, off.tokens)
+    same_tokens("disagg vs serve_continuous, prefix cache on", cfg, params,
+                preq, on.tokens, px["tokens_on"])
+    if on.stats["prefix_hits"] != px["hits"] \
+            or on.stats["prefill_tokens"] >= off.stats["prefill_tokens"]:
+        raise AssertionError(
+            f"disagg prefix cache: {on.stats['prefix_hits']} hits (paged "
+            f"serving {px['hits']}), prefill tokens "
+            f"{on.stats['prefill_tokens']} on, "
+            f"{off.stats['prefill_tokens']} off")
+    out.update(prefix_hits=on.stats["prefix_hits"],
+               prefill_tokens_on=on.stats["prefill_tokens"],
+               prefill_tokens_off=off.stats["prefill_tokens"])
+    print(f"  disagg prefix trace: tokens equal with the cache on and off "
+          f"and to paged serving's; {out['prefix_hits']} hits as paged "
+          f"serving; prefill tokens {out['prefill_tokens_on']} on, "
+          f"{out['prefill_tokens_off']} off")
+    # bf16, in turns (paged, disagg, disagg, paged): host clocks drift
+    # within a run
+    cfg16, p16 = lm["cfg"], lm["params"]
+    engines = (("paged", serve_continuous), ("disagg", serve_disaggregated))
+    runs = {name: ([], []) for name, _ in engines}
+    for name, serve in engines + engines[::-1]:
+        with serve_clocks(reqs) as clocks:
+            res, n, _ = serve_run(f"{name} bf16, B2", cfg16, p16, reqs,
+                                  LM_ENGINE.replace(use_kernel=True),
+                                  serve=serve)
+        out["launches"] += n
+        runs[name][0].append(res)
+        runs[name][1].append(clocks)
+    for name, (results, clocks) in runs.items():
+        out[f"{name}_bfloat16"] = clocked_metrics(f"{name} bf16, B2",
+                                                  results, clocks)
+    last = runs["disagg"][0][-1].stats
+    out["disagg_bfloat16"].update(handoffs=last["handoffs"],
+                                  handoff_pages=last["handoff_pages"])
+    return out
+
+
+def router_phase(lm, step_us: float) -> dict:
+    """``Router(2)`` over ``serve_continuous`` and over
+    ``serve_disaggregated`` on the LM trace, fp32 through B2: the single
+    engine's tokens, both replicas busy. ``simulate_replicas``' host
+    replay for both policies at the measured step time is printed only:
+    it is a model, not a measurement."""
+    cfg, params = lm["cfg32"], lm["params32"]
+    reqs = lm_requests(cfg.vocab)
+    engine = LM_ENGINE.replace(use_kernel=True)
+    out = {"launches": 0}
+    for kind in ("continuous", "disagg"):
+        router = Router(2, engine, engine=kind)
+        paged_attn.LAUNCHES = 0
+        res = router.serve(params, cfg, reqs)
+        launches = paged_attn.LAUNCHES
+        steps = sum(r.stats["decode_steps"] for r in res.per_replica)
+        want = paged_attn.KERNELS_PER_CALL * cfg.n_layers * steps
+        if launches != want or launches <= 0:
+            raise AssertionError(f"router {kind}: B2 launched {launches} "
+                                 f"kernels, expected {want}")
+        same_tokens(f"router {kind} vs one engine", cfg, params, reqs,
+                    res.tokens, lm["tokens32"])
+        split = res.stats["replica_requests"]
+        if len(split) != 2 or min(split) <= 0:
+            raise AssertionError(f"router {kind}: requests per replica "
+                                 f"{split}")
+        out["launches"] += launches
+        out[kind] = {"replica_requests": split, "decode_steps": steps,
+                     "ms_per_token": 1e3 * res.wall_s
+                     / res.stats["generated_tokens"]}
+        print(f"  router {kind}, fp32, B2: requests per replica {split}, "
+              f"{steps} decode steps, {launches} B2 launches, "
+              f"{out[kind]['ms_per_token']:.2f} ms per token over "
+              f"{res.wall_s:.2f} s; tokens equal one engine's")
+    for policy in ("round_robin", "least_loaded"):
+        sim = simulate_replicas(reqs, 2, policy=policy,
+                                n_slots=engine.n_slots, step_time_us=step_us)
+        print(f"  simulate_replicas (host replay x step p50) {policy}, 2 replicas x "
+              f"{engine.n_slots} slots at {step_us:.1f} us a step: TTFT "
+              f"p50 {sim['ttft_us']['p50']:.1f} us, p99 "
+              f"{sim['ttft_us']['p99']:.1f}; latency p50 "
+              f"{sim['latency_us']['p50']:.1f}, p99 "
+              f"{sim['latency_us']['p99']:.1f}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the frontends: musicgen-medium and internvl2-2b at full width and depth
+# ---------------------------------------------------------------------------
+
+def build_frontend(arch: str, dtype: str, dev):
+    """``arch`` at full width and depth in ``dtype``, random weights from
+    a generator seeded ``SEED`` (the bf16 model is the fp32 one rounded)."""
+    cfg = dataclasses.replace(get_config(arch), dtype=dtype)
+    params = LM.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(SEED), device=dev)
+    n = sum(t.numel() for t in _leaves(params))
+    # param_count() counts one embedding and one head of `vocab` rows
+    d = cfg.d_model
+    rows = (cfg.n_codebooks * cfg.vocab if cfg.n_codebooks
+            else cfg.padded_vocab)
+    want = (cfg.param_count() + 2 * (rows - cfg.vocab) * d
+            + (1024 * d if cfg.n_img_tokens else 0))
+    if n != want:
+        raise AssertionError(f"{n} parameters, the config counts {want}")
+    size = sum(t.numel() * t.element_size() for t in _leaves(params))
+    print(f"{arch} {dtype}: full width and depth ({cfg.n_layers} layers, "
+          f"d_model {d}, {cfg.n_heads} heads over {cfg.n_kv} KV heads of "
+          f"{cfg.hd}, d_ff {cfg.d_ff}, vocab {cfg.vocab}"
+          + (f", {cfg.n_codebooks} codebooks" if cfg.n_codebooks else "")
+          + (f", {cfg.n_img_tokens} image tokens" if cfg.n_img_tokens
+             else "")
+          + f"): {n} parameters, {size / 1e9:.2f} GB")
+    return cfg, params
+
+
+def frontend_batch(cfg, dev) -> dict:
+    """GEN_SHAPE prompts from a numpy seed (x K codebooks); internvl2's
+    stub image embeddings (B, 256, 1024) from a seeded generator."""
+    b, s = GEN_SHAPE
+    shape = (b, s, cfg.n_codebooks) if cfg.n_codebooks else (b, s)
+    toks = np.random.default_rng(SEED + 7).integers(0, cfg.vocab,
+                                                     size=shape)
+    batch = {"tokens": torch.as_tensor(toks, device=dev)}
+    if cfg.n_img_tokens:
+        batch["img_embeds"] = torch.randn(
+            (b, cfg.n_img_tokens, 1024), device=dev,
+            generator=torch.Generator(device=dev).manual_seed(SEED + 7))
+    return batch
+
+
+@contextlib.contextmanager
+def runner_logits():
+    """The logits of every prefill and contiguous decode step the
+    engine's runner makes (``generate``'s), in call order, each (B, K, V)
+    for a codebook model."""
+    runner = serve_engine._Runner
+    prefill, step = runner.prefill, runner.step
+    seen = []
+
+    def keep(fn):
+        def call(self, *args, **kw):
+            lg, cache = fn(self, *args, **kw)
+            seen.append(lg.reshape(lg.shape[0], -1, lg.shape[-1]).clone())
+            return lg, cache
+        return call
+
+    runner.prefill, runner.step = keep(prefill), keep(step)
+    try:
+        yield seen
+    finally:
+        runner.prefill, runner.step = prefill, step
+
+
+def decode_loop(cfg, params, batch, max_new):
+    """``prefill`` then ``max_new - 1`` greedy contiguous ``decode_step``s:
+    (new tokens (B, max_new), the logits each token was picked from, the
+    step state for a profile)."""
+    head = LM.head_f32(params, cfg)
+    s = batch["tokens"].shape[1] + cfg.n_img_tokens
+    with torch.no_grad():
+        lg, cache = LM.prefill(params, batch, cfg, head=head)
+        cache = grow_cache(cache, max_new)
+        cur = torch.argmax(lg, -1)[:, None]
+        state = (_tree(cache, torch.clone), cur, s, head)
+        toks, logits = [cur], [lg]
+        for i in range(max_new - 1):
+            lg, cache = LM.decode_step(params, cache, cur, s + i, cfg,
+                                       head=head)
+            cur = torch.argmax(lg[:, -1], -1)[:, None]
+            toks.append(cur)
+            logits.append(lg[:, -1])
+    return torch.cat(toks, 1), logits, state
+
+
+def prefill_check(what, cfg, params, batch, new, logits) -> float:
+    """At each new token j of CHECK_AT: a prefill of the prompt and the
+    j tokens before it picks, greedy, the token the decode loop emitted,
+    from logits within 1e-4 of the decode step's."""
+    worst = 0.0
+    with torch.no_grad():
+        for j in CHECK_AT:
+            toks = torch.cat([batch["tokens"], new[:, :j]], 1)
+            lg, _ = LM.prefill(params, {**batch, "tokens": toks}, cfg)
+            if not torch.equal(torch.argmax(lg, -1), new[:, j]):
+                raise AssertionError(f"{what}: a prefill through new token "
+                                     f"{j} picks another token")
+            err = float((lg - logits[j]).abs().max())
+            worst = max(worst, err)
+            if not torch.isfinite(lg).all() or err > LOGIT_TOL[torch.float32]:
+                raise AssertionError(f"{what}: new token {j}: prefill and "
+                                     f"decode logits differ by {err:.3e}")
+    print(f"  {what}: at new tokens {CHECK_AT} a prefill of the prompt and "
+          f"the tokens before picks the emitted token, logits within "
+          f"{worst:.3e} of the decode step's (tol "
+          f"{LOGIT_TOL[torch.float32]})")
+    return worst
+
+
+def frontend_run(arch, cfg, params, batch) -> tuple:
+    """musicgen through ``generate`` (its logits read off the runner),
+    internvl2 through ``prefill`` and ``decode_step``; returns (new
+    tokens, their logits, a step state, wall ms per token)."""
+    b = batch["tokens"].shape[0]
+    torch.cuda.synchronize()
+    paged_attn.LAUNCHES = 0
+    t0 = time.perf_counter()
+    if cfg.n_codebooks:
+        with runner_logits() as logits:
+            out = generate(params, cfg, batch["tokens"],
+                           EngineConfig(max_new_tokens=MAX_NEW))
+        s = batch["tokens"].shape[1]
+        new = out[:, s:]
+        if tuple(out.shape) != (b, s + MAX_NEW, cfg.n_codebooks) \
+                or not torch.equal(out[:, :s], batch["tokens"]):
+            raise AssertionError(f"{arch} generate: output "
+                                 f"{tuple(out.shape)}")
+        state = None
+    else:
+        new, logits, state = decode_loop(cfg, params, batch, MAX_NEW)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0) / (b * MAX_NEW)
+    if paged_attn.LAUNCHES:
+        raise AssertionError(f"{arch}: the contiguous path launched B2")
+    if new.shape[1] != MAX_NEW or int(new.min()) < 0 \
+            or int(new.max()) >= cfg.vocab or len(logits) < MAX_NEW:
+        raise AssertionError(f"{arch}: bad tokens {tuple(new.shape)}")
+    return new, logits, state, ms
+
+
+def contiguous_profile(arch, cfg, params, state) -> dict:
+    cache, cur, pos, head = state
+    return step_profile(
+        f"{arch} {cfg.dtype}, contiguous", lambda: LM.decode_step(
+            params, cache, cur, pos, cfg, head=head))
+
+
+def frontends_phase(dev) -> dict:
+    """musicgen-medium (4 codebooks, through ``generate``) and
+    internvl2-2b (256 stub image tokens, through ``prefill`` and
+    ``decode_step``) at full width and depth, fp32 then bf16."""
+    out = {}
+    for arch in FRONTEND_ARCHS:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        met = {}
+        for dtype in ("float32", "bfloat16"):
+            cfg, params = build_frontend(arch, dtype, dev)
+            batch = frontend_batch(cfg, dev)
+            new, logits, state, ms = frontend_run(arch, cfg, params, batch)
+            met[f"ms_per_token_{dtype}"] = ms
+            b, s = GEN_SHAPE
+            how = (f"generate, {b} x {s} tokens x {cfg.n_codebooks} "
+                   f"codebooks" if cfg.n_codebooks else
+                   f"prefill of {b} x ({cfg.n_img_tokens} image + {s} text)"
+                   f" tokens and {MAX_NEW - 1} decode steps")
+            print(f"  {arch} {dtype}: {how}, {MAX_NEW} new tokens: "
+                  f"{ms:.2f} ms per token (wall, prefill included)")
+            if dtype == "float32":
+                met["max_logit_err"] = prefill_check(
+                    f"{arch} fp32", cfg, params, batch, new, logits)
+            else:
+                if state is None:
+                    _, _, state = decode_loop(cfg, params, batch, 2)
+                met.update(contiguous_profile(arch, cfg, params, state))
+            del params, batch, new, logits, state
+            gc.collect()
+            torch.cuda.empty_cache()
+        met["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        print(f"  {arch}: peak memory {met['peak_gb']:.2f} GB")
+        out[arch] = met
+    return out
+
+
 def decode_profile(label, cfg, params, state, n=5,
                    first_design=None) -> dict:
-    """Where one decode step's time goes: torch.profiler over ``n`` steps
-    of a first decode step's state (kernel path), device time by kernel
-    and the device's busy share of the wall time."""
-    from torch.profiler import ProfilerActivity, profile
+    """Where one paged decode step's time goes (kernel path), at a first
+    decode step's state: see :func:`step_profile`."""
     cache, cur, pos, table, head = state
+    return step_profile(
+        f"{label}, kernel path", lambda: LM.decode_step_paged(
+            params, cache, cur, pos, table, cfg, use_kernel=True,
+            head=head), n, first_design)
 
-    def run():
-        for _ in range(n):
-            LM.decode_step_paged(params, cache, cur, pos, table, cfg,
-                                 use_kernel=True, head=head)
+
+def step_profile(label, step, n=5, first_design=None) -> dict:
+    """torch.profiler over ``n`` calls of ``step`` (one decode step at
+    the first step's positions): device time by kernel and the device's
+    busy share of the wall time. The profiler can miss launches at the
+    edges of its window, so each profiled call is synchronised, one call
+    before the window is traced and dropped (the schedule's warm-up),
+    and the profile counts only when every kernel was recorded a whole
+    number of times per call (each call launches the same kernels);
+    else it is taken again, three times at most, and then it raises."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    def run(k):
+        for _ in range(k):
+            step()
         torch.cuda.synchronize()
 
     with torch.no_grad():
-        run()
+        run(n)
         t0 = time.perf_counter()
-        run()
+        run(n)
         plain_us = (time.perf_counter() - t0) * 1e6 / n
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            run()
-            wall_us = (time.perf_counter() - t0) * 1e6 / n
-    kernels = [ev for ev in prof.key_averages()
-               if ev.device_type == torch.autograd.DeviceType.CUDA]
+        for attempt in range(1, 4):
+            got = []
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA],
+                         schedule=schedule(wait=0, warmup=1, active=n,
+                                           repeat=1),
+                         on_trace_ready=lambda p: got.append(
+                             p.key_averages())) as prof:
+                for i in range(n + 1):
+                    if i == 1:
+                        t0 = time.perf_counter()
+                    run(1)
+                    if i == n:
+                        # the last step() below closes the window and
+                        # processes the trace: not part of the wall
+                        wall_us = (time.perf_counter() - t0) * 1e6 / n
+                    prof.step()
+            # the schedule marks each step with a ProfilerStep range on
+            # the device: an annotation, not a kernel
+            kernels = [ev for ev in got[0]
+                       if ev.device_type == torch.autograd.DeviceType.CUDA
+                       and not ev.key.startswith("ProfilerStep")]
+            if kernels and all(ev.count % n == 0 for ev in kernels):
+                break
+            print(f"  profile {attempt} of {label}: kernel counts "
+                  f"{sum(ev.count for ev in kernels)} over {n} steps, some "
+                  f"not a multiple of {n}: the profiler missed launches")
+        else:
+            raise AssertionError(f"{label}: no profile of three recorded "
+                                 f"every launch of {n} whole steps")
     busy_us = sum(ev.self_device_time_total for ev in kernels) / n
-    per_step = sum(ev.count for ev in kernels) / n
+    per_step = sum(ev.count for ev in kernels) // n
     b2 = sum(ev.count for ev in kernels
-             if any(nm in ev.key for nm in B2_NAMES)) / n
+             if any(nm in ev.key for nm in B2_NAMES)) // n
     first = ("" if first_design is None else
              f" ({first_design} with the one-launch paged-attention kernel "
              f"of the first design)")
-    print(f"decode-step profile ({label}, kernel path, {n} steps at the "
+    print(f"decode-step profile ({label}, {n} steps at the "
           f"first step's positions, torch.profiler): wall {wall_us:.1f} "
           f"us/step profiled, {plain_us:.1f} us/step unprofiled; device "
           f"busy {busy_us:.1f} us/step ({100 * busy_us / wall_us:.1f}% of "
           f"the profiled wall, {100 * busy_us / plain_us:.1f}% of the "
-          f"unprofiled), {per_step:.0f} kernels/step{first}, {b2:.0f} of "
+          f"unprofiled), {per_step} kernels/step{first}, {b2} of "
           f"them paged-attention kernels")
     for ev in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
         print(f"  {ev.self_device_time_total / n:8.1f} us/step "
@@ -1975,9 +2418,32 @@ def b2_timing(label, pos_h, active, dev, *, h, kv, d, psz, max_pages,
             "sdpa_backend": backend}
 
 
+def busiest_step(vocab: int, reqs) -> tuple:
+    """(pos, active, max_pages) of the decode step of ``reqs`` with the
+    most live keys, the engine's protocol replayed on the host."""
+    pos_h, active = max(replay_positions(vocab, reqs),
+                        key=lambda s: int((s[0] + 1)[s[1]].sum()))
+    max_pages = -(-max(r.prompt_len + r.max_new_tokens for r in reqs)
+                  // LM_ENGINE.page_size)
+    return pos_h, active, max_pages
+
+
+def replay_matches(vocab: int, reqs, res) -> None:
+    """The host replay of ``reqs`` (whose busiest step B2 is timed at)
+    takes the decode steps the run took."""
+    n = len(replay_positions(vocab, reqs))
+    if n != res.stats["decode_steps"]:
+        raise AssertionError(f"replayed {n} decode steps, the run took "
+                             f"{res.stats['decode_steps']}")
+
+
 def paged_timing_phase(lm, dev) -> dict:
-    """B2 at the busiest decode step of the LM trace (bf16, gemma-2b's
-    head shape)."""
+    """B2, bf16 pools, at the busiest decode step of three models'
+    traces: gemma-2b's LM trace (H 8, KV 1, D 256), deepseek-v2-236b's
+    (MLA: H 128, D 512 + 64, fp32 q) and hymba-1.5b's (H 25, KV 5, D 64).
+    All three early in the run: late in a long run the profiler drops
+    kernels from its traces. The deepseek and SSD phases check that the
+    host replay takes their runs' steps."""
     cfg = lm["cfg"]
     pos_h, active = max(lm["steps"],
                         key=lambda s: int((s[0] + 1)[s[1]].sum()))
@@ -1989,6 +2455,19 @@ def paged_timing_phase(lm, dev) -> dict:
     print(f"  {cfg.n_layers} calls = "
           f"{out['kernels_per_call'] * cfg.n_layers:g} kernels per decode "
           f"step")
+    ds = get_config(DS_ARCH)
+    pos_h, active, max_pages = busiest_step(
+        ds.vocab, lm_requests(ds.vocab, DS_PROMPT_LENS, DS_MAX_NEW))
+    out["mla"] = b2_timing(
+        f"{DS_ARCH} MLA", pos_h, active, dev, h=ds.n_heads, kv=1,
+        d=ds.kv_lora, d2=ds.rope_head_dim,
+        scale=1.0 / math.sqrt(ds.hd + ds.rope_head_dim),
+        psz=LM_ENGINE.page_size, max_pages=max_pages, q_dtype=torch.float32)
+    hy = get_config(SSD_ARCHS[0])
+    pos_h, active, max_pages = busiest_step(hy.vocab, lm_requests(hy.vocab))
+    out["hymba"] = b2_timing(
+        f"{hy.name} attention", pos_h, active, dev, h=hy.n_heads, kv=hy.n_kv,
+        d=hy.hd, psz=LM_ENGINE.page_size, max_pages=max_pages)
     return out
 
 
@@ -2029,8 +2508,12 @@ def main() -> int:
     gen_launches = phase("generate", generate_phase, lm, dev)
     phase("contiguous serving", contiguous_phase, lm)
     px = phase("prefix cache", prefix_phase, lm)
+    px_launches = px["launches"]
     phase("speculative serving", speculative_phase, lm)
-    del lm
+    dg = phase("disagg", disagg_phase, lm, px)
+    rt = phase("router", router_phase, lm,
+               dg["paged_bfloat16"]["step_p50_us"])
+    del lm, px
     gc.collect()
     torch.cuda.empty_cache()
     print(f"gemma-2b phases freed: peak memory so far "
@@ -2038,6 +2521,7 @@ def main() -> int:
           f"{torch.cuda.memory_allocated() / 1e9:.2f} GB")
     ds = phase("deepseek", deepseek_phase, dev)
     ssd = phase("ssd", ssd_phase, dev)
+    fe = phase("frontends", frontends_phase, dev)
     print(f"[total {time.perf_counter() - t_start:.1f} s]")
     print(json.dumps({"kernels": [{
         **KERNEL, "launches": sl["launches"], "max_abs_err": max_err,
@@ -2049,8 +2533,9 @@ def main() -> int:
         "us_per_frame": sl["us_per_frame"], "frame_p99_us": sl["p99_us"],
     }, {
         **PAGED_KERNEL,
-        "launches": (lm_launches + gen_launches + px["launches"]
-                     + ds["launches"] + ssd["launches"]),
+        "launches": (lm_launches + gen_launches + px_launches
+                     + dg["launches"] + rt["launches"] + ds["launches"]
+                     + ssd["launches"]),
         "max_abs_err": paged_err["gemma"], "ms": pt["ms"],
         "plain_ms": pt["plain_ms"], "bound_ms": pt["bound_ms"],
         "bound_by": pt["bound_by"], "library_ms": pt["library_ms"],
@@ -2063,7 +2548,7 @@ def main() -> int:
         "step_p99_us": lm_p99,
         "mla_max_abs_err": max(ds["b2_err_float32"],
                                ds["b2_err_bfloat16"]),
-        **{f"mla_{k}": ds["timing"][k] for k in (
+        **{f"mla_{k}": pt["mla"][k] for k in (
             "ms", "device_ms", "graph_ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms", "library_device_ms",
             "library_graph_ms", "gather_sdpa_graph_ms", "sdpa_backend",
@@ -2072,12 +2557,18 @@ def main() -> int:
         "hymba_launches": ssd["launches"],
         "hymba_max_abs_err": max(paged_err["hymba"], ssd["b2_err_float32"],
                                  ssd["b2_err_bfloat16"]),
-        **{f"hymba_{k}": ssd["timing"][k] for k in (
+        **{f"hymba_{k}": pt["hymba"][k] for k in (
             "ms", "device_ms", "graph_ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms", "library_device_ms",
             "library_graph_ms", "gather_sdpa_graph_ms", "sdpa_backend",
             "ctas")},
         **{a: ssd[a] for a in SSD_ARCHS},
+        "internvl2_max_abs_err": paged_err["internvl2"],
+        "disagg": {**{k: dg[k] for k in (
+            "launches", "decode_steps", "handoffs", "handoff_pages",
+            "prefix_hits", "prefill_tokens_on", "prefill_tokens_off",
+            "paged_bfloat16", "disagg_bfloat16")}, "router": rt},
+        "frontends": fe,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,8 +2,9 @@
 
 ``config`` is a copy of the JAX package's configuration; ``layers`` and
 ``lm`` port the decoder's prefill, partial prefill and decode step
-through the contiguous cache and the paged pool, for the attention and
-MLA mixers and the dense and MoE FFNs.
+through the contiguous cache and the paged pool, for every mixer
+(attention, MLA, SSD, hybrid), the dense and MoE FFNs and none, and the
+codebook (musicgen) and image-token (internvl2) frontends.
 """
 from . import layers
 from .config import SHAPES, ModelConfig, ShapeConfig, reduced

@@ -16,11 +16,17 @@ states {conv (L, B, k-1, conv_dim), ssm (L, B, H, P, N)} in either
 cache, and hybrid nests both: {attn: {k, v}, ssd: {conv, ssm}}.
 
 Every mixer is ported (``attn``, ``mla``, ``ssd``, ``hybrid``), with the
-``swiglu``, ``geglu`` and ``moe`` FFNs and ``ffn="none"``; musicgen's
-codebook and internvl2's image-token frontends come with the frontends
-slice.
+``swiglu``, ``geglu`` and ``moe`` FFNs and ``ffn="none"``, and so are the
+two modality frontends, stubs as in JAX: musicgen's codebooks (tokens
+``(B, S, K)``, a ``(K, V, d)`` embedding summed over the codebooks, a
+``(d, K*V)`` head whose column ``k*V + v`` is codebook k's token v) and
+internvl2's image tokens (``batch["img_embeds"]`` ``(B, N, 1024)``
+projected by ``img_proj`` and put before the text, so text positions
+start at N).
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -32,13 +38,6 @@ from .config import ModelConfig
 F32 = torch.float32
 
 
-def _unsupported(cfg: ModelConfig) -> None:
-    if cfg.n_codebooks or cfg.n_img_tokens:
-        raise NotImplementedError(
-            "codebook (musicgen) and image-token (internvl2) frontends "
-            "are not ported yet: they come with the frontends slice")
-
-
 # ---------------------------------------------------------------------------
 # init
 # ---------------------------------------------------------------------------
@@ -48,7 +47,6 @@ _MIXER_INIT = {"attn": L.attn_init, "mla": L.mla_init, "ssd": L.ssd_init,
 
 
 def init_layer(gen: torch.Generator, cfg: ModelConfig, device) -> dict:
-    _unsupported(cfg)
     dt = getattr(torch, cfg.dtype)
     p = {"norm1": L.rmsnorm_init(cfg.d_model, dt, device),
          "mixer": _MIXER_INIT[cfg.mixer](gen, cfg, device)}
@@ -91,21 +89,26 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     ``device`` (``None`` means the card). JAX's PRNG streams have no
     torch counterpart, so these are not the JAX package's values; to run
     identical weights, convert JAX's with
-    ``repro_torch.convert.lm_params_from_numpy``."""
-    _unsupported(cfg)
+    ``repro_torch.convert.lm_params_from_numpy``. Codebook models get a
+    ``(K, V, d)`` embedding and a ``(d, K*V)`` head, image-token models
+    an ``img_proj`` ``(1024, d)`` as well."""
     dev = resolve_device(device)
     dt = getattr(torch, cfg.dtype)
+    d = cfg.d_model
     params = {
         "layers": [init_layer(generator, cfg, dev)
                    for _ in range(cfg.n_layers)],
-        "final_norm": L.rmsnorm_init(cfg.d_model, dt, dev),
-        "embed": (torch.randn((cfg.padded_vocab, cfg.d_model),
-                              generator=generator, device=dev)
-                  * 0.02).to(dt),
+        "final_norm": L.rmsnorm_init(d, dt, dev),
     }
-    if not cfg.tie_embeddings:
-        params["head"] = L.dense_init(generator, cfg.d_model,
-                                      cfg.padded_vocab, dt, dev)
+    rows = ((cfg.n_codebooks, cfg.vocab) if cfg.n_codebooks
+            else (cfg.padded_vocab,))
+    params["embed"] = (torch.randn(rows + (d,), generator=generator,
+                                   device=dev) * 0.02).to(dt)
+    if cfg.n_codebooks or not cfg.tie_embeddings:
+        params["head"] = L.dense_init(generator, d, math.prod(rows), dt,
+                                      dev)
+    if cfg.n_img_tokens:
+        params["img_proj"] = L.dense_init(generator, 1024, d, dt, dev)
     return params
 
 
@@ -114,7 +117,16 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
 # ---------------------------------------------------------------------------
 
 def embed_tokens(params, tokens, cfg: ModelConfig) -> torch.Tensor:
-    return params["embed"][tokens.long()].to(getattr(torch, cfg.dtype))
+    """Token ids -> embeddings. Codebook tokens (B, S, K) sum their K
+    embeddings in JAX's order and precision: from 0, codebook 0 first,
+    each add rounded to the table's dtype."""
+    tokens = tokens.long()
+    emb = params["embed"]
+    if cfg.n_codebooks:
+        x = sum(emb[k][tokens[..., k]] for k in range(cfg.n_codebooks))
+    else:
+        x = emb[tokens]
+    return x.to(getattr(torch, cfg.dtype))
 
 
 def head_weight(params, cfg: ModelConfig) -> torch.Tensor:
@@ -130,10 +142,14 @@ def head_f32(params, cfg: ModelConfig) -> torch.Tensor:
     return head_weight(params, cfg).to(F32)
 
 
-def _logits(hidden, params, cfg: ModelConfig, head):
+def _logits(hidden, params, cfg: ModelConfig, head, mask: bool = True):
+    """fp32 logits; the columns past ``cfg.vocab`` (the padded vocab) are
+    masked where ``mask``. A codebook head's K*V columns are not padding:
+    every caller but ``prefill_partial`` passes ``mask=False`` for
+    codebook models, as JAX's entry points do."""
     w = head_f32(params, cfg) if head is None else head
     logits = hidden.to(F32) @ w
-    if logits.shape[-1] != cfg.vocab:       # mask padded vocab rows
+    if mask and logits.shape[-1] != cfg.vocab:   # mask padded vocab rows
         idx = torch.arange(logits.shape[-1], device=logits.device)
         logits = torch.where(idx < cfg.vocab, logits,
                              torch.tensor(-1e30, dtype=F32,
@@ -146,20 +162,34 @@ def _logits(hidden, params, cfg: ModelConfig, head):
 # ---------------------------------------------------------------------------
 
 def assemble_inputs(params, batch, cfg: ModelConfig):
-    """Returns (embeddings, labels); text tokens only in this slice."""
-    _unsupported(cfg)
+    """Returns (embeddings, labels). An image-token model projects
+    ``batch["img_embeds"]`` (B, N, 1024), cast to the model dtype, through
+    ``img_proj`` and puts it before the text; its labels get N leading
+    -1s (masked)."""
     x = embed_tokens(params, batch["tokens"], cfg)
-    return x, batch.get("labels")
+    labels = batch.get("labels")
+    if cfg.n_img_tokens:
+        img = torch.as_tensor(batch["img_embeds"], device=x.device)
+        iv = L.dense(img.to(x.dtype), params["img_proj"])
+        x = torch.cat([iv, x], dim=1)
+        if labels is not None:
+            labels = torch.as_tensor(labels, device=x.device)
+            pad = torch.full(iv.shape[:2], -1, dtype=labels.dtype,
+                             device=labels.device)
+            labels = torch.cat([pad, labels], dim=1)
+    return x, labels
 
 
 def prefill(params, batch, cfg: ModelConfig, window=None, last_pos=None,
             head=None):
     """Process a full prompt; returns last-position logits (B, V) fp32
-    and the cache: {k, v} (L, B, S, KV, D) for attention, {c_kv, k_rope}
-    (L, B, S, kvl|rd) for MLA, in ``cfg.dtype``; SSD's {conv, ssm} with
-    the SSM state in fp32, as JAX's prefill leaves it (a prompt shorter
-    than ``conv_k - 1`` tokens leaves a short conv state, as in JAX);
-    hybrid's {attn: {k, v}, ssd: {conv, ssm}}.
+    ((B, K, V) for K codebooks) and the cache: {k, v} (L, B, S, KV, D)
+    for attention, {c_kv, k_rope} (L, B, S, kvl|rd) for MLA, in
+    ``cfg.dtype``; SSD's {conv, ssm} with the SSM state in fp32, as
+    JAX's prefill leaves it (a prompt shorter than ``conv_k - 1`` tokens
+    leaves a short conv state, as in JAX); hybrid's {attn: {k, v}, ssd:
+    {conv, ssm}}. An image-token model's cache holds the image positions
+    first, so its text starts at position ``n_img_tokens``.
 
     ``last_pos`` selects which position's logits to return instead of
     the final one: the bucketed path right-pads prompts to pow2 lengths
@@ -176,7 +206,10 @@ def prefill(params, batch, cfg: ModelConfig, window=None, last_pos=None,
         kvs.append(kv)
     hidden = L.rmsnorm(x, params["final_norm"])
     last = hidden[:, _last_index(last_pos, seqlen)]
-    return _logits(last, params, cfg, head), _stack(kvs)
+    logits = _logits(last, params, cfg, head, mask=not cfg.n_codebooks)
+    if cfg.n_codebooks:
+        logits = logits.reshape(-1, cfg.n_codebooks, cfg.vocab)
+    return logits, _stack(kvs)
 
 
 def _last_index(last_pos, s: int) -> int:
@@ -231,7 +264,9 @@ def prefill_partial(params, batch, ctx, cfg: ModelConfig, window=None,
     mirror of the full prefill's math. The suffix is its own MoE chunk,
     so an MoE layer may route it otherwise than a full prefill (JAX
     does the same). Only position-indexed caches have a suffix to skip
-    (attn, mla): SSD and hybrid state absorbs every token."""
+    (attn, mla): SSD and hybrid state absorbs every token. A codebook
+    model's logits stay (B, K*V) with every column past ``cfg.vocab``
+    masked, as JAX's are (no serve path runs it for codebooks)."""
     if cfg.mixer not in ("attn", "mla"):
         raise NotImplementedError(
             "prefix-cache partial prefill needs a position-indexed cache "
@@ -294,13 +329,16 @@ def decode_step(params, cache, tokens, pos, cfg: ModelConfig, head=None):
     cache). ``pos`` is a scalar (fixed-batch decode: every row at one
     depth) or a (B,) vector (continuous batching: each slot at its own
     depth); s > 1 is the speculative verify step. Returns (logits
-    (B, s, V) fp32, cache)."""
-    _unsupported(cfg)
+    (B, s, V) fp32, cache); codebook tokens are (B, 1, K) and their
+    logits (B, 1, K, V)."""
     x = embed_tokens(params, tokens, cfg)
     for li, lp in enumerate(params["layers"]):
         x, _ = layer_decode(lp, x, _layer_cache(cache, li), pos, cfg)
     hidden = L.rmsnorm(x, params["final_norm"])
-    return _logits(hidden, params, cfg, head), cache
+    logits = _logits(hidden, params, cfg, head, mask=not cfg.n_codebooks)
+    if cfg.n_codebooks:
+        logits = logits.reshape(-1, 1, cfg.n_codebooks, cfg.vocab)
+    return logits, cache
 
 
 def layer_decode_paged(lp, x, cache_l, pos, page_table, cfg: ModelConfig,
@@ -329,16 +367,18 @@ def decode_step_paged(params, cache, tokens, pos, page_table,
     gather path); ``pos`` scalar or (B,); cache: the pools of
     :func:`init_paged_cache`, shared by all slots, indexed through
     ``page_table`` (B, max_pages) int32 and updated in place (JAX
-    returns new pools). Returns (logits (B, s, V) fp32, cache).
+    returns new pools). Returns (logits (B, s, V) fp32, cache); a
+    codebook model's logits stay (B, s, K*V), unmasked, as JAX leaves
+    them.
     ``use_kernel=True`` swaps each layer's ``paged_gather`` attention for
     the paged-attention kernel."""
-    _unsupported(cfg)
     x = embed_tokens(params, tokens, cfg)
     for li, lp in enumerate(params["layers"]):
         x, _ = layer_decode_paged(lp, x, _layer_cache(cache, li), pos,
                                   page_table, cfg, use_kernel)
     hidden = L.rmsnorm(x, params["final_norm"])
-    return _logits(hidden, params, cfg, head), cache
+    return _logits(hidden, params, cfg, head,
+                   mask=not cfg.n_codebooks), cache
 
 
 def _zero_layer_cache(cfg: ModelConfig, time_leaves, slots: int, dtype,
@@ -370,7 +410,6 @@ def init_cache(cfg: ModelConfig, batch: int, t: int, dtype,
     kvl|rd) for MLA, SSD's per-slot {conv, ssm} (the SSM state in
     ``cfg.ssd_state_dtype``), and hybrid's {attn: {k, v}, ssd: {conv,
     ssm}}."""
-    _unsupported(cfg)
     init = L.mla_cache_init if cfg.mixer == "mla" else L.attn_cache_init
     return _stacked(cfg, _zero_layer_cache(
         cfg, lambda: init(cfg, batch, t, dtype, device), batch, dtype,
@@ -386,7 +425,6 @@ def init_paged_cache(cfg: ModelConfig, n_pages: int, page_size: int,
     through. SSD's state leaves carry no time dim, so they stay per slot,
     (L, n_slots, ...); hybrid nests its pools and states as
     :func:`init_cache` does."""
-    _unsupported(cfg)
     init = (L.mla_paged_cache_init if cfg.mixer == "mla"
             else L.attn_paged_cache_init)
     return _stacked(cfg, _zero_layer_cache(

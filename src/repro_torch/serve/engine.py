@@ -107,6 +107,17 @@ class _Runner:
             use_kernel=use_kernel, head=self.head))
 
 
+def _check_text_inputs(cfg: ModelConfig, caller: str) -> None:
+    """Raise for an image-token model: the engines prefill a request's
+    tokens alone and have no ``img_embeds`` to pass (JAX's fail on the
+    missing key)."""
+    if cfg.n_img_tokens:
+        raise NotImplementedError(
+            f"{caller} prefills token ids alone and passes no img_embeds, "
+            f"which the image-token model {cfg.name} needs; run "
+            "models.lm.prefill and decode_step with batch['img_embeds']")
+
+
 def _sampler(temperature: float, generator: torch.Generator | None):
     """Greedy (``temperature <= 0``: argmax, first index on ties, as
     ``jnp.argmax``) or a categorical draw from ``generator``. JAX draws
@@ -131,7 +142,8 @@ def generate(params, cfg: ModelConfig, tokens,
              config: EngineConfig | None = None,
              generator: torch.Generator | None = None, *, mesh=None,
              device=None) -> torch.Tensor:
-    """tokens: (B, S_prompt) ids (array or tensor). Returns (B, S + new)
+    """tokens: (B, S_prompt) ids, or (B, S_prompt, K) for a K-codebook
+    model (array or tensor). Returns (B, S + new), or (B, S + new, K),
     int64 on ``device`` (``None`` means the card; parameters move there).
 
     Prefills the batch, then decodes ``config.max_new_tokens`` tokens one
@@ -144,17 +156,17 @@ def generate(params, cfg: ModelConfig, tokens,
     multi-position decode step (``serve.speculative``); tokens are
     identical to the plain path at temperature 0.
 
-    Codebook and image-token frontends raise ``NotImplementedError`` (the
-    frontends slice), and so does ``mesh=`` (the multi-GPU slice)."""
+    A codebook model samples its K codebooks at each step, each from its
+    own V logits. An image-token model raises ``NotImplementedError``:
+    ``generate`` passes its prefill tokens alone, no ``img_embeds`` (JAX's
+    fails on the missing key); drive ``models.lm.prefill`` and
+    ``decode_step`` with ``batch["img_embeds"]`` instead. ``mesh=`` raises
+    too: it waits for the multi-GPU slice."""
     scfg = resolve_config(config, caller="generate")
     if mesh is not None:
         raise NotImplementedError(
             "generate(mesh=...) waits for the multi-GPU slice of the port")
-    if cfg.n_codebooks or cfg.n_img_tokens:
-        raise NotImplementedError(
-            "generate() drives text token ids; the codebook (musicgen) and "
-            "image-token (internvl2) frontends come with the frontends "
-            "slice of the port")
+    _check_text_inputs(cfg, "generate()")
     if scfg.speculative:
         from .speculative import generate_speculative
         return generate_speculative(params, cfg, tokens, scfg, generator,
@@ -217,6 +229,128 @@ def _gather_ctx(cache: dict, pages) -> dict:
         out[key] = g.reshape((g.shape[0], 1, g.shape[1] * g.shape[2])
                              + tuple(g.shape[3:]))
     return out
+
+
+# The paged admission and decode protocol, shared by ``serve_continuous``
+# and the tiers of ``serve.disagg`` (and the target side of
+# ``serve.speculative``): one copy, so that the engines cannot drift.
+
+def _trace_cache_len(cache_len: int | None, requests: list[Request]) -> int:
+    """The per-slot cache length of a trace (``cache_len``, or the
+    longest prompt + new tokens); raises when a request does not fit."""
+    cache_len = cache_len or max(
+        r.prompt_len + r.max_new_tokens for r in requests)
+    short = [r for r in requests
+             if r.prompt_len + r.max_new_tokens > cache_len]
+    if short:
+        raise ValueError(
+            f"cache_len={cache_len} cannot hold request(s) "
+            f"{[r.rid for r in short]}")
+    return cache_len
+
+
+def _admissions(sched: SlotScheduler, one_at_a_time: bool):
+    """One loop turn's admissions. Under the prefix cache one request at
+    a time: each prompt registers right after its own prefill, so the
+    NEXT admission's trie match — even in the same step — can already
+    share it. Without the cache, one batched ``admit()`` call keeps the
+    original page_stall accounting."""
+    if not one_at_a_time:
+        yield from sched.admit()
+        return
+    while True:
+        batch = sched.admit(limit=1)
+        if not batch:
+            return
+        yield batch[0]
+
+
+def _shared_ctx(pool: PagePool, cache: dict, slot: int):
+    """(SharedInfo, gathered context) of a trie-matched admission, the
+    partial prefill's input; (None, None) on no match. The page row is
+    scratch-padded to a pow2 count, as the JAX engine pads it."""
+    info = pool.shared_info(slot)
+    if info is None or info.shared_pages == 0:
+        return None, None
+    sp = info.shared_pages
+    n_pad = 1 << max(sp - 1, 0).bit_length()
+    ctx_row = np.concatenate([
+        pool.slot_row(slot)[:sp],
+        np.full(n_pad - sp, pool.scratch_page, np.int32)])
+    return info, _gather_ctx(cache, ctx_row)
+
+
+def _prefill_request(runner: _Runner, tokens: np.ndarray, dev, bucket: bool,
+                     info=None, ctx=None):
+    """Prefill one prompt: on a trie match (``info``) only the suffix,
+    against the gathered ``ctx`` (a match of no pages is none);
+    pow2-bucketed when ``bucket``.
+    Returns (logits, single-request cache, tokens prefilled)."""
+    plen = int(tokens.shape[0])
+    if info is not None and info.shared_pages:
+        sstart = info.suffix_start
+        s_real = plen - sstart
+        suffix = tokens[sstart:]
+        if bucket:
+            suffix = np.pad(suffix, [(0, bucket_len(s_real) - s_real)])
+        logits, req_cache = runner.prefill_partial(
+            torch.as_tensor(suffix, device=dev)[None], ctx, start=sstart,
+            last_pos=s_real - 1)
+        return logits, req_cache, int(suffix.shape[0])
+    if bucket:
+        padded = np.pad(tokens, [(0, bucket_len(plen) - plen)])
+        logits, req_cache = runner.prefill(
+            torch.as_tensor(padded, device=dev)[None], last_pos=plen - 1)
+        return logits, req_cache, int(padded.shape[0])
+    logits, req_cache = runner.prefill(
+        torch.as_tensor(tokens, device=dev)[None])
+    return logits, req_cache, plen
+
+
+def _insert_prefilled(cache: dict, pool: PagePool, slot: int,
+                      req_cache: dict, tokens: np.ndarray, info=None) -> dict:
+    """Map a prefilled request into its slot's pages and register its
+    prompt in the trie (when the pool has one). On a trie match
+    (``info``) the divergence page is copied first, BEFORE the suffix
+    write lands, then the prompt's pages are ensured and the suffix
+    span written; else the whole cache is written over the slot's pages,
+    scratch-padded to a pow2 count as the JAX engine pads them (the
+    scratch page swallows the pad). Recurrent state leaves go to the
+    slot's start. Returns the cache."""
+    plen = int(tokens.shape[0])
+    if info is not None and info.shared_pages:
+        cow = pool.cow_if_needed(slot)
+        if cow is not None:
+            cache = copy_page_cache(cache, *cow)
+        pool.ensure(slot, plen)
+        cache = insert_paged_span(cache, req_cache, pool.slot_row(slot),
+                                  info.suffix_start,
+                                  plen - info.suffix_start, slot)
+    else:
+        pool.ensure(slot, plen)
+        phys = list(pool.slot_pages(slot))
+        n_pad = 1 << max(len(phys) - 1, 0).bit_length()
+        phys += [pool.scratch_page] * (n_pad - len(phys))
+        req_cache = fit_cache_len(req_cache, len(phys) * pool.page_size)
+        cache = insert_paged_cache(cache, req_cache, phys, slot)
+    if pool.prefix_cache:
+        # future admissions may now share this prompt
+        pool.register_prefix(slot, tokens)
+    return cache
+
+
+def _paged_step(runner: _Runner, cache: dict, cur: torch.Tensor,
+                pool: PagePool, pos_host: np.ndarray, active: np.ndarray,
+                use_kernel: bool):
+    """One paged decode step over every slot: map the page each live
+    slot writes (alloc-on-grow), then the page-table step. Returns
+    (logits, cache)."""
+    for i in np.flatnonzero(active):
+        pool.ensure(int(i), int(pos_host[i]) + 1)
+    pool.tick()
+    return runner.step_paged(cache, cur,
+                             torch.as_tensor(pos_host, device=cur.device),
+                             pool.device_table(), use_kernel=use_kernel)
 
 
 def serve_continuous(params, cfg: ModelConfig, requests: list[Request],
@@ -286,6 +420,7 @@ def serve_continuous(params, cfg: ModelConfig, requests: list[Request],
         raise NotImplementedError(
             "serve_continuous drives single-stream token ids; codebook "
             "models go through generate()")
+    _check_text_inputs(cfg, "serve_continuous")
     # invalid combinations (prefix_cache without paged, ...) raise
     # ValueError inside EngineConfig.__post_init__
     config = resolve_config(config, caller="serve_continuous")
@@ -319,14 +454,7 @@ def serve_continuous(params, cfg: ModelConfig, requests: list[Request],
                 n_slots, 1, device=dev).summary()
             stats["page_stalls"] = 0
         return ServeResult({}, stats, 0.0)
-    cache_len = cache_len or max(
-        r.prompt_len + r.max_new_tokens for r in requests)
-    short = [r for r in requests
-             if r.prompt_len + r.max_new_tokens > cache_len]
-    if short:
-        raise ValueError(
-            f"cache_len={cache_len} cannot hold request(s) "
-            f"{[r.rid for r in short]}")
+    cache_len = _trace_cache_len(cache_len, requests)
 
     params = _to_device(params, dev)
     runner = _Runner(params, cfg)
@@ -354,21 +482,6 @@ def serve_continuous(params, cfg: ModelConfig, requests: list[Request],
     else:
         cache = LM.init_cache(cfg, n_slots, cache_len, dtype, dev)
     cur = torch.zeros((n_slots, 1), dtype=torch.int32, device=dev)
-
-    def _admissions():
-        # Under the prefix cache, admit one request at a time: each
-        # prompt registers right after its own prefill (below), so the
-        # NEXT admission's trie match — even in the same step — can
-        # already share it. Without the cache, one batched admit() call
-        # keeps the original page_stall accounting.
-        if not prefix:
-            yield from sched.admit()
-            return
-        while True:
-            batch = sched.admit(limit=1)
-            if not batch:
-                return
-            yield batch[0]
 
     prefill_tokens = 0
     # observability handles, fetched once per run: ``tr``/``reg`` are
@@ -412,7 +525,7 @@ def serve_continuous(params, cfg: ModelConfig, requests: list[Request],
         while sched.has_work():
             if obs_on:
                 _mark_eligible()
-            for slot, req in _admissions():
+            for slot, req in _admissions(sched, prefix):
                 tokens = np.asarray(req.tokens)
                 plen = req.prompt_len
                 if obs_on:
@@ -428,37 +541,12 @@ def serve_continuous(params, cfg: ModelConfig, requests: list[Request],
                         reg.histogram("serve/req/queue_wait_us").observe(
                             (t_adm - t_el) / 1e3)
                 t_pf = time.perf_counter_ns()
-                info = pool.shared_info(slot) if prefix else None
-                shared = info is not None and info.shared_pages > 0
-                if shared:
-                    # prefix-cache hit: gather the matched pages out of
-                    # the live pool and prefill only the suffix
-                    sstart = info.suffix_start
-                    s_real = plen - sstart
-                    suffix = tokens[sstart:]
-                    if bucket:
-                        suffix = np.pad(
-                            suffix, [(0, bucket_len(s_real) - s_real)])
-                    sp = info.shared_pages
-                    n_pad = 1 << max(sp - 1, 0).bit_length()
-                    ctx_row = np.concatenate([
-                        pool.slot_row(slot)[:sp],
-                        np.full(n_pad - sp, pool.scratch_page, np.int32)])
-                    logits, req_cache = runner.prefill_partial(
-                        torch.as_tensor(suffix, device=dev)[None],
-                        _gather_ctx(cache, ctx_row), start=sstart,
-                        last_pos=s_real - 1)
-                    prefill_tokens += int(suffix.shape[0])
-                elif bucket:
-                    padded = np.pad(tokens, [(0, bucket_len(plen) - plen)])
-                    logits, req_cache = runner.prefill(
-                        torch.as_tensor(padded, device=dev)[None],
-                        last_pos=plen - 1)
-                    prefill_tokens += int(padded.shape[0])
-                else:
-                    logits, req_cache = runner.prefill(
-                        torch.as_tensor(tokens, device=dev)[None])
-                    prefill_tokens += plen
+                info, ctx = (_shared_ctx(pool, cache, slot) if prefix
+                             else (None, None))
+                shared = info is not None
+                logits, req_cache, n = _prefill_request(
+                    runner, tokens, dev, bucket, info, ctx)
+                prefill_tokens += n
                 first = int(sample(logits).reshape(-1)[0])
                 t_ft = time.perf_counter_ns()
                 if runner.last_cold:
@@ -482,38 +570,15 @@ def serve_continuous(params, cfg: ModelConfig, requests: list[Request],
                         reg.histogram("serve/req/ttft_us").observe(
                             (t_ft - t_el) / 1e3)
                 if sched.started(slot, first):
-                    if shared:
-                        # divergence inside a shared page: give the slot
-                        # a private copy BEFORE the suffix write lands
-                        cow = pool.cow_if_needed(slot)
-                        if cow is not None:
-                            cache = copy_page_cache(cache, *cow)
-                        pool.ensure(slot, plen)
-                        cache = insert_paged_span(
-                            cache, req_cache, pool.slot_row(slot), sstart,
-                            plen - sstart, slot)
-                    elif paged:
-                        pool.ensure(slot, plen)
-                        phys = list(pool.slot_pages(slot))
-                        # pad the page list to a pow2 count with the
-                        # scratch page, as the JAX engine does to bound
-                        # its compiled insert variants (the scratch page
-                        # swallows the pad)
-                        n_pad = 1 << max(len(phys) - 1, 0).bit_length()
-                        phys += [pool.scratch_page] * (n_pad - len(phys))
-                        req_cache = fit_cache_len(req_cache,
-                                                  len(phys) * page_size)
-                        cache = insert_paged_cache(cache, req_cache, phys,
-                                                   slot)
+                    if paged:
+                        cache = _insert_prefilled(cache, pool, slot,
+                                                  req_cache, tokens, info)
                     else:
                         if bucket:
                             # drop pad positions; decode overwrites each
                             # position before the mask ever exposes it
                             req_cache = fit_cache_len(req_cache, plen)
                         cache = insert_slot_cache(cache, req_cache, slot)
-                    if prefix:
-                        # future admissions may now share this prompt
-                        pool.register_prefix(slot, tokens)
                     cur[slot, 0] = first
                 elif obs_on:
                     # max_new_tokens == 1: finished off the prefill alone
@@ -526,17 +591,12 @@ def serve_continuous(params, cfg: ModelConfig, requests: list[Request],
             n_active = int(active.sum())
             rid_by_slot = sched.slot_rids() if obs_on else None
             t_st = time.perf_counter_ns()
-            pos = torch.as_tensor(pos_host, device=dev)
             if paged:
-                # alloc-on-grow: map the page each live slot writes
-                for i in np.flatnonzero(active):
-                    pool.ensure(int(i), int(pos_host[i]) + 1)
-                pool.tick()
-                lg, cache = runner.step_paged(cache, cur, pos,
-                                              pool.device_table(),
-                                              use_kernel=use_kernel)
+                lg, cache = _paged_step(runner, cache, cur, pool, pos_host,
+                                        active, use_kernel)
             else:
-                lg, cache = runner.step(cache, cur, pos)
+                lg, cache = runner.step(cache, cur,
+                                        torch.as_tensor(pos_host, device=dev))
             nxt = sample(lg[:, -1])
             # the host pull below waits for the step, so the wall time
             # around it is the true per-step latency (the engine is

@@ -48,11 +48,14 @@ from repro_torch.models import lm as LM
 from repro_torch.obs import metrics as obs_metrics, trace as obs_trace
 
 from .config import EngineConfig
-from .engine import ServeResult, _Runner, _sampler, _to_device, bucket_len
+from .engine import (
+    ServeResult, _Runner, _check_text_inputs, _insert_prefilled, _sampler,
+    _to_device, bucket_len,
+)
 from .paging import PagePool, pages_for
 from .scheduler import (
     SlotScheduler, cache_len_of, evict_slot, evict_slot_state,
-    fit_cache_len, grow_cache, insert_paged_cache, insert_slot_cache,
+    fit_cache_len, grow_cache, insert_slot_cache,
 )
 
 F32 = torch.float32
@@ -203,6 +206,7 @@ def _check_model(cfg: ModelConfig) -> None:
     if cfg.n_codebooks:
         raise NotImplementedError(
             "speculative decoding drives single-stream token ids")
+    _check_text_inputs(cfg, "speculative decoding")
     if cfg.mixer not in ("attn", "mla"):
         raise NotImplementedError(
             "speculative decoding needs a per-position KV cache "
@@ -402,14 +406,8 @@ def serve_continuous_speculative(params, cfg: ModelConfig, requests,
                 if tgt.last_cold:
                     compile_ns += time.perf_counter_ns() - t_pf
                 if sched.started(slot, first):
-                    pool.ensure(slot, plen)
-                    phys = list(pool.slot_pages(slot))
-                    n_pad = 1 << max(len(phys) - 1, 0).bit_length()
-                    phys += [pool.scratch_page] * (n_pad - len(phys))
-                    t_cache = insert_paged_cache(
-                        t_cache, fit_cache_len(req_cache,
-                                               len(phys) * page_size),
-                        phys, slot)
+                    t_cache = _insert_prefilled(t_cache, pool, slot,
+                                                req_cache, toks)
                     d_cache = insert_slot_cache(
                         d_cache, fit_cache_len(d_req, plen), slot)
                     cur[slot] = first

@@ -133,13 +133,17 @@ def test_generate_temperature_draws_from_the_generator(gemma):
     assert any(not torch.equal(run(s), a) for s in (1, 2, 3))
 
 
-@pytest.mark.parametrize("arch,match", [("musicgen-medium", "frontends"),
-                                        ("internvl2-2b", "frontends")])
+@pytest.mark.parametrize("arch,match", [("musicgen-medium", "single-stream"),
+                                        ("internvl2-2b", "img_embeds")])
 def test_generate_rejects_unported_frontends(gemma, arch, match):
+    """What ``generate`` still rejects of the frontends, as JAX's does
+    (tests/test_torch_frontends.py holds both packages to it): a codebook
+    model's speculative path, and an image-token model, whose prefill
+    would need the ``img_embeds`` that ``generate`` does not pass."""
     _, _, _, tp = gemma
     with pytest.raises(NotImplementedError, match=match):
         generate(tp, t_configs.get_reduced(arch), np.zeros((1, 3), np.int64),
-                 device="cpu")
+                 EngineConfig(speculative=True), device="cpu")
 
 
 def test_generate_mesh_raises(gemma):
