@@ -152,7 +152,44 @@ Phases, each of which raises (and the script exits nonzero) on failure:
    from logits within 1e-4 of the decode step's. In bf16: ms per token,
    a decode-step profile (kernels, the device's busy share; every
    decode-step profile of the script must record each kernel a whole
-   number of times per step) and peak memory. No kernel runs on these contiguous paths (B2's launches 0).
+   number of times per step) and peak memory. No kernel runs on these
+   contiguous paths (B2's launches 0). B2 is timed at internvl2-2b's
+   shape in phase 6, at the busiest step of its trace replayed on the
+   host.
+13. The paper pipeline (``[phase paper]``), last. (a) tests/test_system.py
+   on the card: a GRU (16 -> 32) classifier on ``SeqClassifyTask(16, 4,
+   12)`` trained 150 dense steps (SGD, lr 0.05, batch 32), then from the
+   same start 100 steps with the ADMM penalty on U_z, U_r, U_n at
+   ``CSBSpec(8, 8, 0.5)`` (rho 0.02, ``admm_update`` every 10 steps,
+   ``admm_finalize``); dense accuracy > 0.5, pruned > max(dense - 0.2,
+   0.4), density(U_z) <= 0.56, one step through ``cell_apply`` with the
+   three matrices packed (B1) within 3e-5 of the masked-dense cell, and
+   the engine's 2-D sharing no worse than none on U_n. (b) SR1 at full
+   width between a 153 x 153 embedding and a 512 x 4 readout on
+   ``SeqClassifyTask(153, 4, 12)``: 100 dense steps,
+   ``csb_specs_for_params(..., CSBSpec(32, 32, 1 - 1/13), exclude=("emb",
+   "out"))`` (18 matrices), 100 ADMM steps at rho 2.0 (its residual
+   must fall; at test_system.py's 0.02 it grows, in the JAX package as in
+   the port: tests/test_torch_admm_sr1.py), finalized, each matrix frozen
+   through ``CSBLinear.freeze`` (the finalized weight and its packing
+   keep at most Algorithm 1's rows per block-column and columns per
+   block-row, every nonzero is stored, and as many entries as the CPU's
+   packing of the same weight stores), and the 200 frames of phase 4 served
+   through ``rnn_serve_frames`` (B1: 18 x 402 launches) within 1e-4 of
+   the finalized masked-dense model; printed: accuracies, ms per training
+   step, how many mask entries the card's projection of the trained
+   weights differs in from the CPU's, ``compression()``, us_per_frame and
+   p99, and per matrix the paper engine's cycle model
+   (``EngineConfig(4, 4, 4, 4)``, modelled at 200 MHz: efficiency and
+   latency without and with sharing). (c) B1 at gemma-2b's FFN shape (in
+   2048, out 16384) through ``csb_dense``: a ``CSBLinear(transposed=True)``
+   at ``CSBSpec(32, 32, 0.75)`` frozen, x (4, 2048) in fp32 and bf16, held
+   to the plain version and the masked mode at phase 3's tolerances. It
+   is built and timed early, right after phase 4's timing, as phase 4
+   times SR1's MVMs (events, device, graph, the library matmul on the
+   masked-dense weight in x's dtype, live and padded bounds): late in a
+   long run the profiler drops kernels. B1's launch count is set to 0
+   before (a) and read after (c).
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Without CUDA the script
@@ -179,16 +216,24 @@ import torch.nn.functional as F
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
-from repro_torch.cells import make_cell, rnn_scan  # noqa: E402
+from repro_torch.cells import (  # noqa: E402
+    cell_apply, init_params, init_state, make_cell, rnn_scan,
+)
 from repro_torch.configs import PAPER_MODELS, get_config  # noqa: E402
 from repro_torch.core import (  # noqa: E402
-    CSBSpec, csb_masks, csb_project, padded_csb_from_dense,
+    CSBLinear, CSBMatrix, CSBSpec, admm_finalize, admm_init, admm_penalty,
+    admm_update, csb_masks, csb_project, csb_specs_for_params, density,
+    padded_csb_from_dense, residual_norm,
 )
+from repro_torch.data import SeqClassifyTask  # noqa: E402
+from repro_torch.engine import EngineConfig as CycleConfig  # noqa: E402
+from repro_torch.engine import simulate_matrix  # noqa: E402
 from repro_torch.kernels import (  # noqa: E402
     _build, csb_matvec, csb_mvm, csb_mvm_ref, densify, pad_to_grid,
     paged_attn, paged_attn_decode, paged_attn_ref,
 )
 from repro_torch.models import lm as LM  # noqa: E402
+from repro_torch.models.layers import csb_dense  # noqa: E402
 from repro_torch.obs import metrics as obs_metrics  # noqa: E402
 from repro_torch.obs import trace as obs_trace  # noqa: E402
 from repro_torch.serve import (  # noqa: E402
@@ -275,6 +320,32 @@ SHORT_LENS = (1, 2)        # shorter than conv_k - 1: a 1-row conv state
 FRONTEND_ARCHS = ("musicgen-medium", "internvl2-2b")
 # new tokens held against a prefill of the prompt and every token before
 CHECK_AT = (0, 8, 31)
+# the paper pipeline: tests/test_system.py's GRU flow (SGD at lr 0.05,
+# batch 32; ADMM at rho 0.02, updated every 10 steps), then SR1 at full
+# width on the same recipe, then B1 at gemma-2b's FFN width
+PAPER_LR = 0.05
+PAPER_BATCH = 32
+ADMM_RHO = 0.02
+ADMM_EVERY = 10
+GRU_DIMS = (16, 32)
+GRU_TASK = dict(vocab=16, n_classes=4, seq_len=12, seed=0)
+GRU_SPEC = CSBSpec(bm=8, bn=8, prune_rate=0.5)
+GRU_PRUNED = ("U_z", "U_r", "U_n")
+GRU_DENSE_STEPS = 150
+GRU_ADMM_STEPS = 100
+SR1_TASK = dict(vocab=153, n_classes=4, seq_len=12, seed=0)
+SR1_SPEC = CSBSpec(bm=BLOCK, bn=BLOCK, prune_rate=RATE)
+SR1_DENSE_STEPS = 100
+SR1_ADMM_STEPS = 100
+# tests/test_admm.py's rho: at test_system.py's 0.02 the residual of
+# SR1's 18 matrices grows over 100 steps (tests/test_torch_admm_sr1.py),
+# at 2.0 it falls
+SR1_RHO = 2.0
+SR1_EVAL_START = 10_000    # batches no training step draws
+SR1_ENGINE = CycleConfig(K=4, L=4, P=4, Q=4)
+LM_FFN = (2048, 16384)     # gemma-2b's w_gate / w_up, (in, out)
+LM_FFN_SPEC = CSBSpec(bm=32, bn=32, prune_rate=0.75)  # train_lm_e2e.py:47
+LM_FFN_BATCH = 4
 
 
 def card_info() -> str:
@@ -439,47 +510,63 @@ def build_sr1(dev):
     return layers, frames
 
 
-def slice_phase(layers, frames) -> dict:
+def serve_sr1(cells, params, dense, frames) -> dict:
+    """``frames`` through the SR1 layers in turn with ``rnn_serve_frames``
+    (``params`` per layer: PaddedCSB matrices go through B1), B1's
+    launches (9 per cell step) counted, and outputs and final states held
+    within 1e-4 of the same cells run on ``dense`` through the dense
+    branch (fp32 summation order, compounded over 200 recurrent steps)."""
     cfg = EngineConfig(frame_warmup=WARMUP, collect_frame_times=True)
-    csb_mvm.LAUNCHES = 0
+    launches = csb_mvm.LAUNCHES
     x, results = frames, []
-    for cell, csb, _ in layers:
-        y, st, us, frame_us = rnn_serve_frames(cell, csb, x, config=cfg)
+    for cell, p in zip(cells, params):
+        y, st, us, frame_us = rnn_serve_frames(cell, p, x, config=cfg)
         results.append((y, st, us, frame_us))
         x = y
-    launches = csb_mvm.LAUNCHES
-    want = len(layers) * MVMS_PER_STEP * (WARMUP + 2 * FRAMES)
+    launches = csb_mvm.LAUNCHES - launches
+    want = len(cells) * MVMS_PER_STEP * (WARMUP + 2 * FRAMES)
     if launches != want:
         raise AssertionError(f"kernel launched {launches} times on the main "
                              f"path, expected {want}")
+    err = 0.0
     with torch.no_grad():
         x = frames
-        for (cell, _, dense), (y, st, _, _) in zip(layers, results):
-            ry, rst = rnn_scan(cell, dense, x)
+        for cell, d, (y, st, _, _) in zip(cells, dense, results):
+            ry, rst = rnn_scan(cell, d, x)
             if y.shape != (FRAMES, 1, cell.op("W_proj").shape[0]) \
                     or not torch.isfinite(y).all():
                 raise AssertionError(f"{cell.name}: bad outputs {y.shape}")
             for a, b, what in [(y, ry, "outputs")] + [
                     (st[k], rst[k], f"state {k}") for k in rst]:
-                err = float((a - b).abs().max())
+                e = float((a - b).abs().max())
+                err = max(err, e)
                 if not torch.allclose(a, b, rtol=1e-4, atol=1e-4):
                     raise AssertionError(
-                        f"{what} differ from the densified run: {err:.3e}")
+                        f"{what} differ from the dense run: {e:.3e}")
             x = ry
-    us_per_frame = sum(r[2] for r in results)
     frame_us = sum(r[3] for r in results)
-    p50, p99 = (float(np.percentile(frame_us, q)) for q in (50, 99))
-    for i, r in enumerate(results):
-        print(f"layer {i + 1}: {r[2]:.1f} us/frame unblocked, p99 "
-              f"{np.percentile(r[3], 99):.1f} us blocked")
-    print(f"SR1 slice: {FRAMES} frames at batch 1, {launches} kernel "
+    return {"launches": launches, "max_abs_err": err,
+            "us_per_frame": sum(r[2] for r in results),
+            "p50_us": float(np.percentile(frame_us, 50)),
+            "p99_us": float(np.percentile(frame_us, 99)),
+            "layers": [(r[2], float(np.percentile(r[3], 99)))
+                       for r in results]}
+
+
+def slice_phase(layers, frames) -> dict:
+    csb_mvm.LAUNCHES = 0
+    cells, csb, dense = zip(*layers)
+    out = serve_sr1(cells, csb, dense, frames)
+    for i, (us, p99) in enumerate(out["layers"]):
+        print(f"layer {i + 1}: {us:.1f} us/frame unblocked, p99 "
+              f"{p99:.1f} us blocked")
+    print(f"SR1 slice: {FRAMES} frames at batch 1, {out['launches']} kernel "
           f"launches ({MVMS_PER_STEP} per cell step), outputs within 1e-4 "
-          f"of the densified run; us_per_frame {us_per_frame:.1f}, "
-          f"frame p50 {p50:.1f} us, p99 {p99:.1f} us, budget "
-          f"{FRAME_BUDGET_US:.0f} us: "
-          f"{'met' if p99 <= FRAME_BUDGET_US else 'NOT met'}")
-    return {"launches": launches, "us_per_frame": us_per_frame,
-            "p50_us": p50, "p99_us": p99}
+          f"of the densified run; us_per_frame {out['us_per_frame']:.1f}, "
+          f"frame p50 {out['p50_us']:.1f} us, p99 {out['p99_us']:.1f} us, "
+          f"budget {FRAME_BUDGET_US:.0f} us: "
+          f"{'met' if out['p99_us'] <= FRAME_BUDGET_US else 'NOT met'}")
+    return out
 
 
 def median_ms(fn, reps=50, warm=5) -> float:
@@ -584,7 +671,6 @@ def frame_profile(layers, frames, n=20) -> None:
     both layers (as rnn_serve_frames steps them, unblocked), device time
     by kernel and the device's busy share of the wall time."""
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.cells import cell_apply, init_state
 
     def run():
         for cell, csb, _ in layers:
@@ -612,39 +698,41 @@ def frame_profile(layers, frames, n=20) -> None:
               f"{ev.count // n:4d}x  {ev.key[:90]}")
 
 
-def timing_phase(layers, dev) -> dict:
-    """The 18 CSB MVMs of one SR1 frame at batch 1: kernel, plain version,
-    one dense matmul each (library yardstick), and the bound."""
-    rng = np.random.default_rng(SEED + 2)
-    mats = [p for _, csb, _ in layers for p in csb.values()
-            if not isinstance(p, torch.Tensor)]
+def b1_timing(label, pairs) -> dict:
+    """B1 on ``pairs`` of (PaddedCSB, x (rows, in)), one call each: the
+    kernel on x pre-padded to its tile grid, its plain version, one
+    library matmul each against the densified weight in x's dtype, and
+    the bound: each matrix's live values and indices, x and y moved once
+    (``padded_bound_ms``: every padded value and index instead), or its
+    products at the fp32 rate (the kernel sums in fp32)."""
     items = []
     live_bytes = padded_bytes = flops = 0
-    for p in mats:
-        x = torch.from_numpy(rng.standard_normal((1, p.shape[1])).astype(
-            np.float32)).to(dev)
+    for p, x in pairs:
+        rows = x.shape[0]
         xp = pad_to_grid(x, 8, p.grid[1] * p.block[1]).contiguous()
-        items.append((p, x, xp, densify(p).float()))
+        items.append((p, x, xp, densify(p).to(x.dtype), rows))
         nnz = int((p.m.long() * p.n.long()).sum())
         idx = int(p.m.sum() + p.n.sum()) + 2 * p.m.numel()
-        live_bytes += 4 * (nnz + idx + p.shape[1] + p.shape[0])
-        padded_bytes += 4 * (p.vals.numel() + p.row_idx.numel()
-                             + p.col_idx.numel() + 2 * p.m.numel())
-        flops += 2 * nnz
+        io = x.element_size() * x.numel() + 4 * rows * p.shape[0]
+        live_bytes += p.vals.element_size() * nnz + 4 * idx + io
+        padded_bytes += (p.vals.element_size() * p.vals.numel() + io
+                         + 4 * (p.row_idx.numel() + p.col_idx.numel()
+                                + 2 * p.m.numel()))
+        flops += 2 * nnz * rows
 
     def kernel():
-        for p, _, xp, _ in items:
+        for p, _, xp, _, rows in items:
             csb_mvm.csb_mvm_cuda(p.vals, p.row_idx, p.col_idx, p.m, p.n, xp,
                                  grid=p.grid, block=p.block, batch_tile=8,
-                                 group=1, rows=1)
+                                 group=1, rows=rows)
 
     def plain_version():
-        for p, _, xp, _ in items:
+        for p, _, xp, _, _ in items:
             csb_mvm_ref(p.vals, p.row_idx, p.col_idx, p.m, p.n, xp,
                         grid=p.grid, block=p.block)
 
     def library():
-        for _, x, _, w in items:
+        for _, x, _, w, _ in items:
             torch.matmul(x, w.T)
 
     ms = median_ms(kernel)
@@ -656,25 +744,34 @@ def timing_phase(layers, dev) -> dict:
     bytes_s = live_bytes / HBM_BYTES_PER_S
     ops_s = flops / FP32_FLOPS
     bound_ms = max(bytes_s, ops_s) * 1e3
-    print(f"timing, one SR1 frame's {len(items)} CSB MVMs at batch 1 "
-          f"(median of 50, CUDA events): kernel {ms:.4f} ms "
-          f"(device time {'not measured' if dev_ms is None else f'{dev_ms:.4f} ms'}"
-          f" from torch.profiler), plain {plain_ms:.4f} ms, library "
-          f"matmul {library_ms:.4f} ms (device time "
-          f"{_ms(library_dev_ms)}); replayed from a CUDA graph (no host): "
-          f"kernel {kernel_graph_ms:.4f} ms, library {library_graph_ms:.4f}"
-          f" ms; bound {bound_ms:.5f} ms "
-          f"({live_bytes} live bytes; padded vals+indices "
-          f"{padded_bytes} bytes = {padded_bytes / HBM_BYTES_PER_S * 1e3:.5f}"
-          f" ms; {flops} flops)")
+    padded_bound_ms = max(padded_bytes / HBM_BYTES_PER_S, ops_s) * 1e3
+    print(f"timing, {label} (median of 50, CUDA events): kernel {ms:.4f} ms "
+          f"(device time {_ms(dev_ms)} from torch.profiler), plain "
+          f"{plain_ms:.4f} ms, library matmul {library_ms:.4f} ms (device "
+          f"time {_ms(library_dev_ms)}); replayed from a CUDA graph (no "
+          f"host): kernel {kernel_graph_ms:.4f} ms, library "
+          f"{library_graph_ms:.4f} ms; bound {bound_ms:.5f} ms "
+          f"({live_bytes} live bytes; padded vals+indices+x+y "
+          f"{padded_bytes} bytes = {padded_bound_ms:.5f} ms; {flops} flops)")
     return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
             "bound_ms": bound_ms,
             "bound_by": "bytes" if bytes_s >= ops_s else "operations",
             "device_ms": dev_ms, "library_device_ms": library_dev_ms,
             "graph_ms": kernel_graph_ms, "library_graph_ms": library_graph_ms,
-            "live_bytes": live_bytes,
-            "padded_bytes": padded_bytes}
+            "live_bytes": live_bytes, "padded_bytes": padded_bytes,
+            "padded_bound_ms": padded_bound_ms}
 
+
+def timing_phase(layers, dev) -> dict:
+    """The 18 CSB MVMs of one SR1 frame at batch 1: kernel, plain version,
+    one dense matmul each (library yardstick), and the bound."""
+    rng = np.random.default_rng(SEED + 2)
+    pairs = [(p, torch.from_numpy(rng.standard_normal(
+        (1, p.shape[1])).astype(np.float32)).to(dev))
+        for _, csb, _ in layers for p in csb.values()
+        if not isinstance(p, torch.Tensor)]
+    return b1_timing(f"one SR1 frame's {len(pairs)} CSB MVMs at batch 1",
+                     pairs)
 
 
 # ---------------------------------------------------------------------------
@@ -2438,10 +2535,12 @@ def replay_matches(vocab: int, reqs, res) -> None:
 
 
 def paged_timing_phase(lm, dev) -> dict:
-    """B2, bf16 pools, at the busiest decode step of three models'
+    """B2, bf16 pools, at the busiest decode step of four models'
     traces: gemma-2b's LM trace (H 8, KV 1, D 256), deepseek-v2-236b's
-    (MLA: H 128, D 512 + 64, fp32 q) and hymba-1.5b's (H 25, KV 5, D 64).
-    All three early in the run: late in a long run the profiler drops
+    (MLA: H 128, D 512 + 64, fp32 q), hymba-1.5b's (H 25, KV 5, D 64) and
+    internvl2-2b's (H 16, KV 8, D 128; its own path is contiguous, so the
+    engine's protocol is replayed on the host for its vocab). All four
+    early in the run: late in a long run the profiler drops
     kernels from its traces. The deepseek and SSD phases check that the
     host replay takes their runs' steps."""
     cfg = lm["cfg"]
@@ -2468,7 +2567,416 @@ def paged_timing_phase(lm, dev) -> dict:
     out["hymba"] = b2_timing(
         f"{hy.name} attention", pos_h, active, dev, h=hy.n_heads, kv=hy.n_kv,
         d=hy.hd, psz=LM_ENGINE.page_size, max_pages=max_pages)
+    iv = get_config(FRONTEND_ARCHS[1])
+    pos_h, active, max_pages = busiest_step(iv.vocab, lm_requests(iv.vocab))
+    out["internvl2"] = b2_timing(
+        f"{iv.name} attention", pos_h, active, dev, h=iv.n_heads, kv=iv.n_kv,
+        d=iv.hd, psz=LM_ENGINE.page_size, max_pages=max_pages)
     return out
+
+
+# ---------------------------------------------------------------------------
+# The paper pipeline: ADMM-CSB training, CSBLinear, the engine cycle model
+# ---------------------------------------------------------------------------
+
+def _sync(dev) -> None:
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def classifier_logits(cells, p, toks) -> torch.Tensor:
+    """tests/test_system.py's classifier: embedding, the cells one after
+    the other, a readout of the last step."""
+    xs = p["emb"][toks].transpose(0, 1)            # (T, B, emb)
+    for cell, cp in zip(cells, p["rnn"]):
+        xs, _ = rnn_scan(cell, cp, xs)
+    return xs[-1] @ p["out"]
+
+
+def classifier_loss(cells, p, toks, labels) -> torch.Tensor:
+    ll = torch.log_softmax(classifier_logits(cells, p, toks), -1)
+    return -torch.mean(torch.gather(ll, 1, labels[:, None]))
+
+
+def _batch(task, step, batch, dev):
+    b = task.batch(step, batch)
+    return (torch.from_numpy(b["tokens"]).long().to(dev),
+            torch.from_numpy(b["labels"]).long().to(dev))
+
+
+def train_classifier(cells, params, task, steps, *, specs=None, start=0,
+                     lr=PAPER_LR, batch=PAPER_BATCH, rho=ADMM_RHO,
+                     every=ADMM_EVERY) -> dict:
+    """SGD as tests/test_system.py trains: batch ``start + step`` of
+    ``task``; with ``specs`` the ADMM penalty joins the loss,
+    ``admm_update`` runs every ``every`` steps and ``admm_finalize``
+    ends the run. Returns the params (as ``trained`` those before the
+    finalize), the ADMM state, each step's loss, the residual after each
+    update and the wall ms per step (the card synchronised once, at the
+    end)."""
+    dev = params["out"].device
+    state = admm_init(params, specs, rho=rho) if specs else None
+    losses, residuals = [], []
+    _sync(dev)
+    t0 = time.perf_counter()
+    for step in range(steps):
+        toks, labels = _batch(task, start + step, batch, dev)
+        params = _tree(params, lambda t: t.detach().requires_grad_())
+        loss = classifier_loss(cells, params, toks, labels)
+        if state is not None:
+            loss = loss + admm_penalty(params, state, specs)
+        leaves = list(_leaves(params))
+        grads = iter(torch.autograd.grad(loss, leaves))
+        params = _tree(params, lambda t: (t - lr * next(grads)).detach())
+        losses.append(loss.detach())
+        if state is not None and (step + 1) % every == 0:
+            state = admm_update(params, state, specs)
+            residuals.append(residual_norm(params, state, specs))
+    _sync(dev)
+    step_ms = (time.perf_counter() - t0) * 1e3 / max(steps, 1)
+    trained = params
+    if specs:
+        params = admm_finalize(params, specs)
+    return {"params": params, "trained": trained, "state": state,
+            "losses": [float(v) for v in losses],
+            "residuals": [float(v) for v in residuals], "step_ms": step_ms}
+
+
+def classifier_accuracy(cells, params, task, start=100) -> float:
+    """tests/test_system.py's accuracy: 4 batches of 64 from ``start``."""
+    dev = params["out"].device
+    correct = 0
+    with torch.no_grad():
+        for step in range(start, start + 4):
+            toks, labels = _batch(task, step, 64, dev)
+            pred = torch.argmax(classifier_logits(cells, params, toks), -1)
+            correct += int((pred == labels).sum())
+    return correct / 256
+
+
+def gru_params(dev, seed=SEED) -> dict:
+    """tests/test_system.py's GRU classifier, from a seeded generator."""
+    gen = torch.Generator().manual_seed(seed)
+    cell = make_cell("gru", *GRU_DIMS)
+    return {"emb": (torch.randn(GRU_DIMS[0], GRU_DIMS[0], generator=gen)
+                    * 0.3).to(dev),
+            "rnn": [init_params(cell, gen, device=dev)],
+            "out": (torch.randn(GRU_DIMS[1], GRU_TASK["n_classes"],
+                                generator=gen) * 0.3).to(dev)}
+
+
+def gru_specs(params) -> dict:
+    specs = _tree(params, lambda _: None)
+    for name in GRU_PRUNED:
+        specs["rnn"][0][name] = GRU_SPEC
+    return specs
+
+
+def gru_flow(dev, params=None) -> dict:
+    """tests/test_system.py on ``dev``: train the GRU dense, ADMM-prune
+    its U matrices from the same start, pack them, serve a step through
+    ``cell_apply`` (B1 on the card) against the masked-dense cell, and
+    hold the engine's 2-D sharing to no worse than none on U_n; raises
+    where a gate of test_system.py fails."""
+    params = gru_params(dev) if params is None else params
+    cells = [make_cell("gru", *GRU_DIMS)]
+    task = SeqClassifyTask(**GRU_TASK)
+    dense = train_classifier(cells, params, task, GRU_DENSE_STEPS)
+    dense_acc = classifier_accuracy(cells, dense["params"], task)
+    pruned = train_classifier(cells, params, task, GRU_ADMM_STEPS,
+                              specs=gru_specs(params))
+    pruned_acc = classifier_accuracy(cells, pruned["params"], task)
+    cp = pruned["params"]["rnn"][0]
+    dens = float(density(cp["U_z"]))
+    if not (dense_acc > 0.5 and pruned_acc > max(dense_acc - 0.2, 0.4)
+            and dens <= 0.56):
+        raise AssertionError(f"GRU flow: dense accuracy {dense_acc}, pruned "
+                             f"{pruned_acc}, density(U_z) {dens}")
+    csb, masks = dict(cp), {}
+    for name in GRU_PRUNED:
+        masks[name] = rm, cm = csb_masks(cp[name], GRU_SPEC)
+        csb[name] = padded_csb_from_dense(
+            cp[name], GRU_SPEC.bm, GRU_SPEC.bn, row_mask=rm, col_mask=cm,
+            device=dev)
+    gen = torch.Generator().manual_seed(SEED + 9)
+    x = torch.randn(4, GRU_DIMS[0], generator=gen).to(dev)
+    st = init_state(cells[0], (4,), device=dev)
+    with torch.no_grad():
+        y_dense, _ = cell_apply(cells[0], cp, x, st)
+        launches = csb_mvm.LAUNCHES
+        y_csb, _ = cell_apply(cells[0], csb, x, st)
+        launches = csb_mvm.LAUNCHES - launches
+    err = float((y_csb - y_dense).abs().max())
+    if not torch.allclose(y_csb, y_dense, rtol=3e-5, atol=3e-5):
+        raise AssertionError(f"GRU served through CSB: {err:.3e} from the "
+                             f"masked-dense cell (bound 3e-5)")
+    rm, cm = masks["U_n"]
+    mat = CSBMatrix.from_dense(cp["U_n"].cpu().numpy(), GRU_SPEC.bm,
+                               GRU_SPEC.bn, rm.cpu().numpy(),
+                               cm.cpu().numpy())
+    e = CycleConfig(K=2, L=2, P=4, Q=4)
+    eff0 = simulate_matrix(mat, e, "none").efficiency
+    eff2 = simulate_matrix(mat, e, "2d").efficiency
+    if eff2 < eff0:
+        raise AssertionError(f"2-D sharing {eff2:.3f} < none {eff0:.3f}")
+    print(f"  (a) GRU {GRU_DIMS[0]}->{GRU_DIMS[1]} classifier: dense "
+          f"{GRU_DENSE_STEPS} steps, accuracy {dense_acc:.4f} (> 0.5); "
+          f"ADMM at {GRU_SPEC} on {GRU_PRUNED}, {GRU_ADMM_STEPS} steps, "
+          f"accuracy {pruned_acc:.4f} (> {max(dense_acc - 0.2, 0.4):.4f}), "
+          f"density(U_z) {dens:.4f} (<= 0.56); one step served through "
+          f"CSB ({launches} B1 launches) {err:.3e} from the masked-dense "
+          f"cell (bound 3e-5); engine cycle model on U_n "
+          f"(EngineConfig(2, 2, 4, 4), modelled): efficiency none "
+          f"{eff0:.4f}, 2d {eff2:.4f}; ms per step dense "
+          f"{dense['step_ms']:.2f}, ADMM {pruned['step_ms']:.2f}")
+    return {"dense_acc": dense_acc, "pruned_acc": pruned_acc,
+            "density_U_z": dens, "serve_err": err, "launches": launches,
+            "eff_none": eff0, "eff_2d": eff2,
+            "step_ms_dense": dense["step_ms"],
+            "step_ms_admm": pruned["step_ms"]}
+
+
+def sr1_classifier(dev, seed=SEED) -> tuple:
+    """SR1's two LSTMP layers at full width between a vocab x vocab
+    embedding and a readout to the task's classes, from a seeded
+    generator."""
+    gen = torch.Generator().manual_seed(seed)
+    cells = [make_cell(c.cell, c.n_input, c.n_hidden, c.proj)
+             for c in PAPER_MODELS["SR1"].layers]
+    vocab, n_out = SR1_TASK["vocab"], cells[-1].op("W_proj").shape[0]
+    params = {"emb": (torch.randn(vocab, vocab, generator=gen)
+                      * 0.3).to(dev),
+              "rnn": [init_params(c, gen, device=dev) for c in cells],
+              "out": (torch.randn(n_out, SR1_TASK["n_classes"],
+                                  generator=gen) / math.sqrt(n_out)).to(dev)}
+    return cells, params
+
+
+def csb_pattern_check(name, z, packed, mat, spec) -> tuple:
+    """Algorithm 1's counts on a finalized weight ``z`` and its frozen
+    packing: in each block-column at most keep_r rows of z are nonzero,
+    in each block-row at most keep_c columns (keep_r, keep_c as
+    ``csb_masks`` counts them), and the same holds for the packing's m,
+    n; the packing stores every nonzero of z, and as many entries as
+    ``mat``, the CPU's packing of the same weights. Returns the stored
+    fraction and the density of z; raises where a count is broken."""
+    q = 1.0 - math.sqrt(1.0 - spec.prune_rate)
+    (br, bc), (bm, bn) = packed.grid, (spec.bm, spec.bn)
+    keep_r = max(int(round((1.0 - q) * br * bm)), 1)
+    keep_c = max(int(round((1.0 - q) * bc * bn)), 1)
+    nz = F.pad(z != 0, (0, bc * bn - z.shape[1], 0, br * bm - z.shape[0]))
+    nz = nz.reshape(br, bm, bc, bn)
+    rows = nz.any(3).sum((0, 1))                 # per block-column
+    cols = nz.any(1).sum((1, 2))                 # per block-row
+    m = packed.m.reshape(br, bc).long()
+    n = packed.n.reshape(br, bc).long()
+    stored, nnz = int((m * n).sum()), int(nz.sum())
+    bad = [what for what, ok in (
+        (f"rows of z per block-column {int(rows.max())} > {keep_r}",
+         int(rows.max()) <= keep_r),
+        (f"columns of z per block-row {int(cols.max())} > {keep_c}",
+         int(cols.max()) <= keep_c),
+        (f"packed rows per block-column {int(m.sum(0).max())} > {keep_r}",
+         int(m.sum(0).max()) <= keep_r),
+        (f"packed columns per block-row {int(n.sum(1).max())} > {keep_c}",
+         int(n.sum(1).max()) <= keep_c),
+        (f"{nnz} nonzeros, {stored} stored", nnz <= stored),
+        (f"{stored} stored on the card, {mat.nnz} by the CPU",
+         stored == mat.nnz)) if not ok]
+    if bad:
+        raise AssertionError(f"{name}: {'; '.join(bad)}")
+    size = z.shape[0] * z.shape[1]
+    return stored / size, nnz / size
+
+
+def sr1_pipeline(dev, frames, sl) -> dict:
+    """SR1 at full width through the paper's pipeline: dense training,
+    ``csb_specs_for_params``, ADMM, finalize, ``CSBLinear.freeze`` and
+    ``rnn_serve_frames`` through B1 on the SR1 phase's frames."""
+    cells, params = sr1_classifier(dev)
+    task = SeqClassifyTask(**SR1_TASK)
+    dense = train_classifier(cells, params, task, SR1_DENSE_STEPS)
+    specs = csb_specs_for_params(dense["params"], SR1_SPEC,
+                                 exclude=("emb", "out"))
+    names = [(i, k) for i, s in enumerate(specs["rnn"])
+             for k, v in s.items() if v is not None]
+    if len(names) != len(cells) * MVMS_PER_STEP or specs["emb"] is not None \
+            or specs["out"] is not None:
+        raise AssertionError(f"csb_specs_for_params selected {names}")
+    # at test_system.py's rho 0.02 the residual grows over these 100
+    # steps, in the JAX package as in the port
+    # (tests/test_torch_admm_sr1.py); at SR1_RHO it falls
+    admm = train_classifier(cells, dense["params"], task, SR1_ADMM_STEPS,
+                            specs=specs, start=SR1_DENSE_STEPS, rho=SR1_RHO)
+    res = admm["residuals"]
+    if not res[-1] < res[0]:
+        raise AssertionError(f"ADMM residual {res[0]:.4f} after the first "
+                             f"update, {res[-1]:.4f} after the last")
+    # the trained weights before finalize, masked on the card and on the
+    # CPU: summation order may flip a near-tie (a count, not a gate)
+    trained, flips = admm["trained"], 0
+    for i, k in names:
+        w = trained["rnn"][i][k]
+        for a, b in zip(csb_masks(w, SR1_SPEC), csb_masks(w.cpu(), SR1_SPEC)):
+            flips += int((a.cpu() != b).sum())
+    fin = admm["params"]
+    accs = {k: classifier_accuracy(cells, r["params"], task, SR1_EVAL_START)
+            for k, r in (("dense", dense), ("pruned", admm))}
+    serve, rows = [dict(p) for p in fin["rnn"]], []
+    for i, k in names:
+        z = fin["rnn"][i][k]
+        lin = CSBLinear(z, SR1_SPEC, mode="masked").freeze()
+        p = lin._packed
+        serve[i][k] = p
+        # the CPU's packing of the same weights, a second witness
+        zc = z.cpu()
+        mat = CSBMatrix.from_dense(zc.numpy(), SR1_SPEC.bm, SR1_SPEC.bn,
+                                   *(a.numpy() for a in csb_masks(zc,
+                                                                  SR1_SPEC)))
+        stored, dens = csb_pattern_check(f"layer {i + 1} {k}", z, p, mat,
+                                         SR1_SPEC)
+        sims = {m: simulate_matrix(mat, SR1_ENGINE, m)
+                for m in ("none", "horizontal", "2d")}
+        rows.append({"matrix": f"{i + 1}.{k}", "shape": p.shape,
+                     "density": dens, "stored": stored,
+                     "compression": lin.compression(),
+                     **{f"eff_{m}": s.efficiency for m, s in sims.items()},
+                     **{f"latency_us_{m}": s.latency_us
+                        for m, s in sims.items()}})
+    srv = serve_sr1(cells, serve, fin["rnn"], frames)
+    print(f"  (b) SR1 at full width, {SR1_SPEC}: {len(names)} matrices "
+          f"selected; dense {SR1_DENSE_STEPS} steps, accuracy "
+          f"{accs['dense']:.4f}, {dense['step_ms']:.2f} ms a step; ADMM "
+          f"{SR1_ADMM_STEPS} steps at rho {SR1_RHO}: residual "
+          f"{res[0]:.4f} -> {res[-1]:.4f}, accuracy "
+          f"{accs['pruned']:.4f}, {admm['step_ms']:.2f} ms a step; card vs "
+          f"CPU masks of the trained weights differ in {flips} block rows "
+          f"and columns")
+    print(f"      served {FRAMES} frames through B1 ({srv['launches']} "
+          f"launches): {srv['max_abs_err']:.3e} from the masked-dense model "
+          f"(bound 1e-4); us_per_frame {srv['us_per_frame']:.1f}, frame "
+          f"p99 {srv['p99_us']:.1f} us "
+          f"(SR1 phase, projected weights: {sl['us_per_frame']:.1f}, "
+          f"{sl['p99_us']:.1f} us)")
+    print(f"      per matrix: density, stored fraction (sum m*n / "
+          f"size; the spec keeps {SR1_SPEC.keep_fraction:.4f} on average "
+          f"over uniform blocks), CSBLinear.compression(); engine cycle "
+          f"model at {SR1_ENGINE} "
+          f"(modelled at 200 MHz, not card times): efficiency none / "
+          f"horizontal / 2d, latency us none / 2d")
+    for r in rows:
+        print(f"      {r['matrix']:9s} {str(r['shape']):12s} "
+              f"{r['density']:.4f} {r['stored']:.4f} "
+              f"{r['compression']:6.2f}x  {r['eff_none']:.4f} "
+              f"{r['eff_horizontal']:.4f} {r['eff_2d']:.4f}  "
+              f"{r['latency_us_none']:.2f} {r['latency_us_2d']:.2f}")
+    return {"launches": srv["launches"], "max_abs_err": srv["max_abs_err"],
+            "dense_acc": accs["dense"], "pruned_acc": accs["pruned"],
+            "step_ms_dense": dense["step_ms"], "step_ms_admm": admm["step_ms"],
+            "residual_first": res[0], "residual_last": res[-1],
+            "mask_flips": flips, "us_per_frame": srv["us_per_frame"],
+            "frame_p99_us": srv["p99_us"], "matrices": rows}
+
+
+def build_lm_ffn(dev) -> dict:
+    """gemma-2b's w_gate / w_up shape (in 2048, out 16384), random weights
+    from a generator seeded 0, as a ``CSBLinear(transposed=True)`` in
+    masked mode at examples/train_lm_e2e.py's spec and its ``freeze()``
+    (B1's grid and launch configuration checked and printed), and x
+    (4, 2048)."""
+    gen = torch.Generator().manual_seed(SEED)
+    d_in, d_out = LM_FFN
+    w = (torch.randn(LM_FFN, generator=gen) / math.sqrt(d_in)).to(dev)
+    x = torch.randn(LM_FFN_BATCH, d_in, generator=gen).to(dev)
+    lin = CSBLinear(w, LM_FFN_SPEC, mode="masked", transposed=True)
+    t0 = time.perf_counter()
+    frozen = lin.freeze()
+    freeze_s = time.perf_counter() - t0
+    p = frozen._packed
+    (br, bc), (bm, _) = p.grid, p.block
+    cfg = csb_mvm.launch_config(bc, bm, p.pm, p.pn, 8, LM_FFN_BATCH)
+    ctas = (br, -(-LM_FFN_BATCH // 8))
+    if ctas[0] > 2 ** 31 - 1 or ctas[1] > 65535 or cfg[0] > 1024 \
+            or 8 * bm > 1024:
+        raise AssertionError(f"B1 cannot launch grid {ctas}, {cfg}")
+    print(f"{ARCH} FFN projection (in {d_in}, out {d_out}) at "
+          f"{LM_FFN_SPEC}: frozen in {freeze_s:.2f} s, grid {p.grid} = "
+          f"{p.m.numel()} blocks, Pm {p.pm}, Pn {p.pn}, compression "
+          f"{frozen.compression():.3f}x; B1 launch: CTAs {ctas}, (threads, "
+          f"lanes, chunk, smem) {cfg}")
+    return {"lin": lin, "frozen": frozen, "x": x, "freeze_s": freeze_s,
+            "ctas": ctas, "launch_config": cfg,
+            "compression": frozen.compression()}
+
+
+def ffn_timing_phase(ffn) -> dict:
+    """B1 at gemma-2b's FFN shape, x in fp32 and bf16, timed as the SR1
+    frame's MVMs are (early in the run: late in a long run the profiler
+    drops kernels from its traces)."""
+    p = ffn["frozen"]._packed
+    return {str(dtype).split(".")[-1]: b1_timing(
+        f"B1 at {ARCH}'s FFN (in {LM_FFN[0]}, out {LM_FFN[1]}, batch "
+        f"{LM_FFN_BATCH}, x {dtype})", [(p, ffn["x"].to(dtype))])
+        for dtype in (torch.float32, torch.bfloat16)}
+
+
+def lm_ffn(ffn) -> dict:
+    """B1 at an LM width through ``csb_dense``: the frozen FFN projection
+    on x in fp32 and bf16, held to the plain version and to the masked
+    mode at the kernel phase's tolerances."""
+    lin, frozen, x = ffn["lin"], ffn["frozen"], ffn["x"]
+    p = frozen._packed
+    out = {"max_abs_err": 0.0}
+    launches = csb_mvm.LAUNCHES
+    for dtype in (torch.float32, torch.bfloat16):
+        xd = x.to(dtype)
+        y = csb_dense(xd, frozen)
+        masked = csb_dense(xd, lin)
+        ref = plain(p, xd).to(dtype)
+        tol = TOL[dtype]
+        errs = (float((y.float() - ref.float()).abs().max()),
+                float((y.float() - masked.float()).abs().max()))
+        if y.shape != (LM_FFN_BATCH, LM_FFN[1]) or y.dtype != dtype \
+                or not torch.allclose(y.float(), ref.float(), rtol=tol,
+                                      atol=tol) \
+                or not torch.allclose(y.float(), masked.float(), rtol=tol,
+                                      atol=tol):
+            raise AssertionError(f"csb_dense {dtype}: {errs} from the plain "
+                                 f"version and the masked mode (tol {tol})")
+        if dtype == torch.float32:
+            out["max_abs_err"] = errs[0]
+        print(f"  (c) csb_dense at {ARCH}'s FFN, x {dtype}: {errs[0]:.3e} "
+              f"from the plain version, {errs[1]:.3e} from the masked mode "
+              f"(tol {tol})")
+    out["launches"] = csb_mvm.LAUNCHES - launches
+    return out
+
+
+def paper_phase(dev, frames, sl, ffn) -> dict:
+    """The paper pipeline on the card: (a) tests/test_system.py's flow,
+    (b) SR1 at full width through ADMM, ``CSBLinear`` and B1, (c) B1 at
+    gemma-2b's FFN width through ``csb_dense`` (``ffn`` from
+    ``build_lm_ffn``, timed in ``ffn_timing_phase``). B1's launch count
+    is set to 0 before the three parts and read after them."""
+    csb_mvm.LAUNCHES = 0
+    t = [time.perf_counter()]
+    gru = gru_flow(dev)
+    t.append(time.perf_counter())
+    sr1 = sr1_pipeline(dev, frames, sl)
+    t.append(time.perf_counter())
+    out = lm_ffn(ffn)
+    t.append(time.perf_counter())
+    launches = csb_mvm.LAUNCHES
+    if launches != gru["launches"] + sr1["launches"] + out["launches"] \
+            or gru["launches"] != len(GRU_PRUNED) or out["launches"] != 2:
+        raise AssertionError(f"B1 launched {launches} times in the paper "
+                             f"phase: GRU {gru['launches']}, SR1 "
+                             f"{sr1['launches']}, FFN {out['launches']}")
+    secs = [b - a for a, b in zip(t, t[1:])]
+    print(f"  paper phase: B1 launched {launches} times; (a) {secs[0]:.1f} "
+          f"s, (b) {secs[1]:.1f} s, (c) {secs[2]:.1f} s")
+    return {"gru": gru, "sr1": sr1, "lm_ffn": out, "launches": launches,
+            "part_s": secs}
 
 
 def main() -> int:
@@ -2496,6 +3004,8 @@ def main() -> int:
     max_err = phase("B1 kernel", kernel_phase, dev, sr1_shapes)
     sl = phase("SR1 slice", slice_phase, layers, frames)
     tm = phase("B1 timing", timing_phase, layers, dev)
+    ffn = build_lm_ffn(dev)
+    ffn_t = phase("B1 timing at gemma-2b's FFN", ffn_timing_phase, ffn)
     phase("SR1 frame profile", frame_profile, layers, frames)
     paged_err = phase("B2 kernel", paged_kernel_phase, dev)
     lm = phase("LM slice", lm_slice_phase, dev)
@@ -2522,15 +3032,30 @@ def main() -> int:
     ds = phase("deepseek", deepseek_phase, dev)
     ssd = phase("ssd", ssd_phase, dev)
     fe = phase("frontends", frontends_phase, dev)
+    pp = phase("paper", paper_phase, dev, frames, sl, ffn)
     print(f"[total {time.perf_counter() - t_start:.1f} s]")
     print(json.dumps({"kernels": [{
-        **KERNEL, "launches": sl["launches"], "max_abs_err": max_err,
+        **KERNEL, "launches": sl["launches"] + pp["launches"],
+        "max_abs_err": max(max_err, pp["lm_ffn"]["max_abs_err"]),
         "ms": tm["ms"], "plain_ms": tm["plain_ms"],
         "bound_ms": tm["bound_ms"], "bound_by": tm["bound_by"],
         "library_ms": tm["library_ms"], "device_ms": tm["device_ms"],
         "library_device_ms": tm["library_device_ms"],
         "graph_ms": tm["graph_ms"], "library_graph_ms": tm["library_graph_ms"],
         "us_per_frame": sl["us_per_frame"], "frame_p99_us": sl["p99_us"],
+        "sr1_launches": sl["launches"], "paper_launches": pp["launches"],
+        # measured only: the engine's cycle model is printed, not kept here
+        "paper": {
+            "gru": {k: v for k, v in pp["gru"].items()
+                    if not k.startswith("eff_")},
+            "sr1": {k: v for k, v in pp["sr1"].items() if k != "matrices"}},
+        **{f"lm_ffn_{k}": ffn[k] for k in (
+            "freeze_s", "ctas", "launch_config", "compression")},
+        **{f"lm_ffn_{k}": v for k, v in pp["lm_ffn"].items()},
+        **{f"lm_ffn_{d}_{k}": ffn_t[d][k] for d in ("float32", "bfloat16")
+           for k in ("ms", "device_ms", "graph_ms", "plain_ms", "bound_ms",
+                     "padded_bound_ms", "bound_by", "library_ms",
+                     "library_device_ms", "library_graph_ms")},
     }, {
         **PAGED_KERNEL,
         "launches": (lm_launches + gen_launches + px_launches
@@ -2564,6 +3089,11 @@ def main() -> int:
             "ctas")},
         **{a: ssd[a] for a in SSD_ARCHS},
         "internvl2_max_abs_err": paged_err["internvl2"],
+        **{f"internvl2_{k}": pt["internvl2"][k] for k in (
+            "ms", "device_ms", "graph_ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms", "library_device_ms",
+            "library_graph_ms", "gather_sdpa_graph_ms", "sdpa_backend",
+            "ctas")},
         "disagg": {**{k: dg[k] for k in (
             "launches", "decode_steps", "handoffs", "handoff_pages",
             "prefix_hits", "prefill_tokens_on", "prefill_tokens_off",

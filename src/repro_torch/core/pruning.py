@@ -145,3 +145,35 @@ def kernel_sizes(w: torch.Tensor, spec: CSBSpec
 
 def density(w: torch.Tensor) -> torch.Tensor:
     return (w != 0).to(torch.float32).mean()
+
+
+# ---------------------------------------------------------------------------
+# Baselines the paper compares against (Table 2), same projection API.
+# ---------------------------------------------------------------------------
+
+def magnitude_project(w: torch.Tensor, prune_rate: float) -> torch.Tensor:
+    """Non-structured (random-sparsity) magnitude pruning [Han et al.]."""
+    flat = torch.abs(w).reshape(-1)
+    keep = max(int(round((1.0 - prune_rate) * flat.numel())), 1)
+    mask = _topk_mask(flat, keep).reshape(w.shape)
+    return w * mask.to(w.dtype)
+
+
+def bank_balanced_project(w: torch.Tensor, prune_rate: float,
+                          bank: int = 64) -> torch.Tensor:
+    """Bank-balanced sparsity [Cao et al. FPGA'19]: equal nnz per bank
+    (contiguous segments of each row)."""
+    out_dim, in_dim = w.shape
+    nb = -(-in_dim // bank)
+    wp = F.pad(w, (0, nb * bank - in_dim))
+    banks = torch.abs(wp).reshape(out_dim, nb, bank)
+    keep = max(int(round((1.0 - prune_rate) * bank)), 1)
+    mask = _topk_mask(banks, keep).reshape(out_dim, nb * bank)
+    return w * mask[:, :in_dim].to(w.dtype)
+
+
+def row_column_project(w: torch.Tensor, prune_rate: float) -> torch.Tensor:
+    """Coarse structured pruning [Wen et al. ISS]: whole rows/cols of the
+    *entire matrix* (CSB with a single block)."""
+    spec = CSBSpec(bm=w.shape[0], bn=w.shape[1], prune_rate=prune_rate)
+    return csb_project(w, spec)

@@ -46,6 +46,17 @@ def dense(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return x @ w.to(x.dtype)
 
 
+def csb_dense(x: torch.Tensor, lin) -> torch.Tensor:
+    """A projection through a ``core.CSBLinear`` — the CSB-pruned twin
+    of :func:`dense`. A frozen weight runs the CSB-MVM kernel (its plain
+    version on the CPU).
+
+    The JAX package also partitions a frozen weight over a mesh's "model"
+    axis and tags the output with the "residual" layout; the port has no
+    mesh until its multi-GPU slice, so neither happens here."""
+    return lin(x).to(x.dtype)
+
+
 # ---------------------------------------------------------------------------
 # RMSNorm
 # ---------------------------------------------------------------------------

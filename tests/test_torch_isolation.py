@@ -36,9 +36,26 @@ def test_no_jax_or_repro_module_is_loaded():
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
 
 
+@pytest.mark.parametrize("module", ["repro_torch.engine", "repro_torch.data",
+                                    "repro_torch.core"])
+def test_paper_subpackages_alone_load_no_jax_or_repro(module):
+    """Each subpackage of the paper pipeline, imported first and alone
+    in a fresh process, loads no JAX and nothing of ``repro``."""
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    probe = (f"import json, sys, {module}; print(json.dumps(sorted(k for k "
+             f"in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', "
+             f"'repro'))))")
+    out = subprocess.run([sys.executable, "-c", probe], capture_output=True,
+                         text=True, env=env, cwd=ROOT, timeout=240)
+    assert out.returncode == 0, out.stderr
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
 @pytest.mark.parametrize("path", sorted(
     str(p.relative_to(ROOT)) for p in [*PKG.rglob("*.py"),
-                                       ROOT / "chip_smoke.py"]))
+                                       ROOT / "chip_smoke.py",
+                                       ROOT / "examples" /
+                                       "quickstart_torch.py"]))
 def test_sources_import_no_jax_or_repro(path):
     src = (ROOT / path).read_text()
     bad = re.findall(r"^\s*(?:import\s+(?:jax|repro)\b|from\s+(?:jax|repro)"
