@@ -190,9 +190,35 @@ Phases, each of which raises (and the script exits nonzero) on failure:
    masked-dense weight in x's dtype, live and padded bounds): late in a
    long run the profiler drops kernels. B1's launch count is set to 0
    before (a) and read after (c).
+14. Kernel B3 (``[phase sharded]``), after the paper phase: the CSB
+   matvec with W's block-rows split over a mesh's "model" axis
+   (``kernels.csb_sharded``: B1 on each rank's shard, chunked
+   ``all_gather``, one row unpermute). Ranks are processes of their own
+   (``dist.launch.spawn_ranks``, spawn start method, the kernels built
+   above and only loaded there), all on this card: one rank is an NCCL
+   group, several ranks exchange over gloo (NCCL refuses two ranks on
+   one card). (a) On SR1's 18 matrices (batch 1) and gemma-2b's FFN
+   projection (batch 4, x fp32 and bf16) at R = 1, 2 and 4 ranks and
+   overlap 1, 2, 3: every rank's y bit-equal to B1 on the unsharded
+   matrix and within ``TOL`` of B3's plain version (B1's plain version on
+   the shard, the same gathers); the plans' imbalance and block-rows per
+   rank and B1's launches per call printed. (b) On two ranks of a
+   (1, 2) ("data", "model") mesh, SR1 at full width through
+   ``rnn_serve_frames(mesh=...)`` for 200 frames at batch 1: outputs and
+   final states bit-equal to the unsharded run through B1 and within
+   1e-4 of the masked-dense model; us_per_frame and p99 printed as two
+   ranks sharing one card over gloo, not a multi-GPU number. (c) On the
+   same ranks ``csb_dense`` at gemma-2b's FFN under ``use_rules``, equal
+   to its unsharded run. B3's and B1's launch counts are set to 0 on each
+   rank before (b) and read after (c). (d) On the NCCL rank, B3 timed on
+   SR1's 18 MVMs and on the FFN: events (median of 50) beside B1 on the
+   whole matrix and B3's plain version, the profiler's device time and
+   the all-gather's share of it, CUDA-graph replay, and the bound (B1's
+   live bytes plus the gathered rows). A rank that fails or outlives its
+   deadline fails the phase.
 
-The line before the last is a JSON object with one entry per kernel; the
-last line is ``{"ok": true, "device": {...}}``. Without CUDA the script
+The line before the last is a JSON object with one entry per kernel (B1,
+B2, B3); the last line is ``{"ok": true, "device": {...}}``. Without CUDA the script
 exits nonzero and prints no result.
 """
 from __future__ import annotations
@@ -212,6 +238,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
@@ -226,11 +253,16 @@ from repro_torch.core import (  # noqa: E402
     padded_csb_from_dense, residual_norm,
 )
 from repro_torch.data import SeqClassifyTask  # noqa: E402
+from repro_torch.dist import Rules, partition_padded, use_rules  # noqa: E402
+from repro_torch.dist.launch import spawn_ranks  # noqa: E402
 from repro_torch.engine import EngineConfig as CycleConfig  # noqa: E402
 from repro_torch.engine import simulate_matrix  # noqa: E402
 from repro_torch.kernels import (  # noqa: E402
-    _build, csb_matvec, csb_mvm, csb_mvm_ref, densify, pad_to_grid,
-    paged_attn, paged_attn_decode, paged_attn_ref,
+    _build, csb_matvec, csb_mvm, csb_mvm_ref, csb_sharded, densify,
+    pad_to_grid, paged_attn, paged_attn_decode, paged_attn_ref,
+)
+from repro_torch.kernels.csb_sharded import (  # noqa: E402
+    csb_matvec_sharded, csb_matvec_sharded_ref,
 )
 from repro_torch.models import lm as LM  # noqa: E402
 from repro_torch.models.layers import csb_dense  # noqa: E402
@@ -266,6 +298,15 @@ KERNEL = {
     "source": "src/repro_torch/kernels/csrc/csb_mvm.cu",
     "replaces": "src/repro/kernels/csb_mvm.py:77",
 }
+SHARDED_KERNEL = {
+    "name": "csb_matvec_sharded",
+    "route": "B1 + all_gather",
+    "source": "src/repro_torch/kernels/csb_sharded.py",
+    "replaces": "src/repro/kernels/csb_sharded.py:155",
+    "library_ms": None,      # no single PyTorch call computes it
+}
+SHARD_OVERLAPS = (1, 2, 3)
+SHARD_TIMEOUT_S = 300      # a spawned group's deadline
 PAGED_KERNEL = {
     "name": "paged_attn",
     "route": "cuda",
@@ -602,25 +643,54 @@ def graph_ms(fn, calls=20, reps=20) -> float:
     return median_ms(graph.replay, reps=reps, warm=2) / calls
 
 
+def _annotation(ev) -> bool:
+    """A range the profiler puts on the device (a collective's ``nccl:``
+    range, ``ProfilerStep``): it spans kernels, it is not one."""
+    return bool(getattr(ev, "is_user_annotation", False)) or \
+        ev.key.startswith(("nccl:", "ProfilerStep"))
+
+
 def device_kernel_ms(fn, names=("csb_mvm_kernel",), reps=20,
-                     once_per_call=False):
+                     once_per_call=False, per_call=None):
     """Device time per call of fn of every kernel whose name contains one
     of ``names`` (every kernel if ``names`` is None), from torch.profiler:
     (total ms, {kernel: ms}), or (None, {}) where the profiler shows no
-    device time. With ``once_per_call`` (each named kernel launched once
-    a call) a kernel's time is its mean over the launches the profiler
-    recorded, which late in a long run are not always all of them."""
+    device time. Device annotations are left out (``_annotation``). With
+    ``once_per_call`` (each named kernel launched once a call) a kernel's
+    time is its mean over the launches the profiler recorded, which late
+    in a long run are not always all of them. With ``per_call`` ({name:
+    launches a call}) the profile counts only when it recorded ``reps``
+    times as many launches of each name and, where ``names`` is None, a
+    whole number a call of every kernel; else it is taken again, three
+    times at most, and then it raises."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    evs = [ev for ev in prof.key_averages()
-           if ev.device_type == torch.autograd.DeviceType.CUDA
-           and (names is None or any(nm in ev.key for nm in names))]
+    for attempt in range(1, 4):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        evs = [ev for ev in prof.key_averages()
+               if ev.device_type == torch.autograd.DeviceType.CUDA
+               and not _annotation(ev)
+               and (names is None or any(nm in ev.key for nm in names))]
+        if per_call is None:
+            break
+        counts = {nm: sum(ev.count for ev in evs if nm in ev.key)
+                  for nm in per_call}
+        whole = names is not None or all(ev.count % reps == 0 for ev in evs)
+        if whole and all(counts[nm] == reps * n
+                                 for nm, n in per_call.items()):
+            break
+        print(f"  profile {attempt}: {counts} launches recorded over {reps} "
+              f"calls of {per_call} each"
+              f"{'' if whole else ', a kernel not a whole number a call'}"
+              f": the profiler missed launches")
+    else:
+        raise AssertionError(f"no profile of three recorded every launch "
+                             f"of {reps} calls ({per_call} a call)")
     if once_per_call and any(ev.count < reps for ev in evs):
         print(f"  the profiler recorded {[ev.count for ev in evs]} of "
               f"{reps} launches a kernel; times are means over those")
@@ -698,6 +768,20 @@ def frame_profile(layers, frames, n=20) -> None:
               f"{ev.count // n:4d}x  {ev.key[:90]}")
 
 
+def mvm_work(p, x) -> tuple[int, int, int]:
+    """(live bytes, padded bytes, flops) one B1 call on (p, x) must move
+    and do: each live value and index, x and y once (padded: every stored
+    value and index instead); 2 x live products x rows."""
+    rows = x.reshape(-1, x.shape[-1]).shape[0]
+    nnz = int((p.m.long() * p.n.long()).sum())
+    idx = int(p.m.sum() + p.n.sum()) + 2 * p.m.numel()
+    io = x.element_size() * x.numel() + 4 * rows * p.shape[0]
+    live = p.vals.element_size() * nnz + 4 * idx + io
+    padded = (p.vals.element_size() * p.vals.numel() + io
+              + 4 * (p.row_idx.numel() + p.col_idx.numel() + 2 * p.m.numel()))
+    return live, padded, 2 * nnz * rows
+
+
 def b1_timing(label, pairs) -> dict:
     """B1 on ``pairs`` of (PaddedCSB, x (rows, in)), one call each: the
     kernel on x pre-padded to its tile grid, its plain version, one
@@ -708,17 +792,12 @@ def b1_timing(label, pairs) -> dict:
     items = []
     live_bytes = padded_bytes = flops = 0
     for p, x in pairs:
-        rows = x.shape[0]
         xp = pad_to_grid(x, 8, p.grid[1] * p.block[1]).contiguous()
-        items.append((p, x, xp, densify(p).to(x.dtype), rows))
-        nnz = int((p.m.long() * p.n.long()).sum())
-        idx = int(p.m.sum() + p.n.sum()) + 2 * p.m.numel()
-        io = x.element_size() * x.numel() + 4 * rows * p.shape[0]
-        live_bytes += p.vals.element_size() * nnz + 4 * idx + io
-        padded_bytes += (p.vals.element_size() * p.vals.numel() + io
-                         + 4 * (p.row_idx.numel() + p.col_idx.numel()
-                                + 2 * p.m.numel()))
-        flops += 2 * nnz * rows
+        items.append((p, x, xp, densify(p).to(x.dtype), x.shape[0]))
+        live, padded, ops = mvm_work(p, x)
+        live_bytes += live
+        padded_bytes += padded
+        flops += ops
 
     def kernel():
         for p, _, xp, _, rows in items:
@@ -738,8 +817,9 @@ def b1_timing(label, pairs) -> dict:
     ms = median_ms(kernel)
     plain_ms = median_ms(plain_version)
     library_ms = median_ms(library)
-    dev_ms, _ = device_kernel_ms(kernel)
-    library_dev_ms, _ = device_kernel_ms(library, None)
+    dev_ms, _ = device_kernel_ms(kernel, per_call={
+        "csb_mvm_kernel": len(items)})
+    library_dev_ms, _ = device_kernel_ms(library, None, per_call={})
     kernel_graph_ms, library_graph_ms = graph_ms(kernel), graph_ms(library)
     bytes_s = live_bytes / HBM_BYTES_PER_S
     ops_s = flops / FP32_FLOPS
@@ -2979,6 +3059,305 @@ def paper_phase(dev, frames, sl, ffn) -> dict:
             "part_s": secs}
 
 
+# ---------------------------------------------------------------------------
+# B3: the sharded CSB matvec over ranks of one card ([phase sharded])
+# ---------------------------------------------------------------------------
+
+def b3_cases(mesh, cases) -> dict:
+    """(a) on this rank: B3 (``csb_matvec_sharded``) on each matrix of
+    ``cases`` ({name: (PaddedCSB, x, B1's y on the whole matrix)}) split
+    over the mesh's "model" axis, for every overlap; bit-equal to B1 and
+    within ``TOL`` of B3's plain version (the same gathers), or it
+    raises. Returns the plans, B1 launches per call and the errors."""
+    n_model = dict(zip(mesh.mesh_dim_names, mesh.shape))["model"]
+    rank = mesh.get_local_rank("model")
+    out = {"plans": {}, "b1_per_call": {}, "max_abs_err": 0.0}
+    for name, (p, x, want) in cases.items():
+        plan, s = partition_padded(p.to("cpu"), n_model)
+        s = s.local(rank).to(x.device)
+        out["plans"][name] = (plan.imbalance,
+                              [len(r) for r in plan.assignment])
+        for ov in SHARD_OVERLAPS:
+            before = csb_mvm.LAUNCHES
+            y = csb_matvec_sharded(s, x, mesh=mesh, overlap=ov)
+            out["b1_per_call"][(name, ov)] = csb_mvm.LAUNCHES - before
+            ref = csb_matvec_sharded_ref(s, x, mesh=mesh, overlap=ov)
+            _sync(x.device)
+            what = f"B3 over {n_model} ranks, {name}, overlap {ov}"
+            if y.shape != want.shape or not torch.equal(y, want):
+                diff = (float((y - want).abs().max())
+                        if y.shape == want.shape else "a shape")
+                raise AssertionError(f"{what}: differs from B1 on the "
+                                     f"unsharded matrix by {diff}")
+            err = float((y - ref).abs().max())
+            if not torch.allclose(y, ref, rtol=TOL[x.dtype],
+                                  atol=TOL[x.dtype]):
+                raise AssertionError(f"{what}: {err:.3e} from its plain "
+                                     f"version (tol {TOL[x.dtype]})")
+            out["max_abs_err"] = max(out["max_abs_err"], err)
+    return out
+
+
+def b3_timing(mesh, label, pairs) -> dict:
+    """B3 at R = 1 on ``pairs`` of (PaddedCSB, x): CUDA events (median of
+    50) beside B1 on the whole matrix (``csb_matvec``) and B3's plain
+    version; the profiler's device time of B3's kernels and copies, of B1,
+    and of B3's all-gathers run alone on buffers of its chunks' shapes
+    (their share of B3's device time), each profile holding every launch
+    of its calls; CUDA-graph replay; and the bound: B1's live bytes plus
+    the gathered rows, or the products at the fp32 rate."""
+    dev = torch.device("cuda", torch.cuda.current_device())
+    shards = [(partition_padded(p.to("cpu"), 1)[1].local(0).to(dev), x)
+              for p, x in pairs]
+    live = flops = gathered = 0
+    for p, x in pairs:
+        b, _, ops = mvm_work(p, x)
+        live += b
+        flops += ops
+        gathered += 4 * x.reshape(-1, x.shape[-1]).shape[0] * p.shape[0]
+    # B3's chunks at its default overlap: one B1 launch and one all-gather
+    # of a (batch padded to 8, chunk rows) fp32 buffer each
+    chunks = [(-(-x.reshape(-1, x.shape[-1]).shape[0] // 8) * 8,
+               (e_ - s_) * s.block[0])
+              for s, x in shards for s_, e_ in csb_sharded._chunk_bounds(
+                  s.rows_per_dev, csb_sharded.DEFAULT_OVERLAP)]
+    bufs = [torch.zeros(shape, dtype=torch.float32, device=dev)
+            for shape in chunks]
+    pg = mesh.get_group("model")
+
+    def b3(overlap=None):
+        for s, x in shards:
+            csb_matvec_sharded(s, x, mesh=mesh, overlap=overlap)
+
+    def b1():
+        for p, x in pairs:
+            csb_matvec(p, x)
+
+    def plain_version():
+        for s, x in shards:
+            csb_matvec_sharded_ref(s, x, mesh=mesh)
+
+    def gathers():
+        works = [dist.all_gather([torch.empty_like(y)], y, group=pg,
+                                 async_op=True) for y in bufs]
+        for w in works:
+            w.wait()
+
+    out = {"ms": median_ms(b3), "ms_overlap1": median_ms(lambda: b3(1)),
+           "b1_ms": median_ms(b1), "plain_ms": median_ms(plain_version)}
+    out["device_ms"], each = device_kernel_ms(
+        b3, None, per_call={"csb_mvm_kernel": len(chunks)})
+    out["allgather_device_ms"], _ = device_kernel_ms(gathers, None,
+                                                     per_call={})
+    out["allgather_share"] = (out["allgather_device_ms"] or 0.0) / \
+        out["device_ms"]
+    copies = sum(v for k, v in each.items() if "memcpy" in k.lower())
+    out["b1_device_ms"], _ = device_kernel_ms(
+        b1, per_call={"csb_mvm_kernel": len(pairs)})
+    try:
+        out["graph_ms"], out["graph_note"] = graph_ms(b3), None
+    except RuntimeError as e:          # a timing only: the gates ran above
+        out["graph_ms"], out["graph_note"] = None, str(e).splitlines()[0]
+    bytes_s = (live + gathered) / HBM_BYTES_PER_S
+    ops_s = flops / FP32_FLOPS
+    out["bound_ms"] = max(bytes_s, ops_s) * 1e3
+    out["bound_by"] = "bytes" if bytes_s >= ops_s else "operations"
+    out["bytes"] = live + gathered
+    print(f"  (d) {label}, one NCCL rank (median of 50, CUDA events): B3 "
+          f"{out['ms']:.4f} ms (overlap 1: {out['ms_overlap1']:.4f} ms), B1 "
+          f"on the whole matrix {out['b1_ms']:.4f} ms, B3's plain version "
+          f"{out['plain_ms']:.4f} ms; device time (kernels and copies) B3 "
+          f"{_ms(out['device_ms'])}, of which memory copies {copies:.4f} "
+          f"ms; its {len(chunks)} all-gathers alone "
+          f"{_ms(out['allgather_device_ms'])} "
+          f"({100 * out['allgather_share']:.1f}% of B3's); B1 "
+          f"{_ms(out['b1_device_ms'])}; CUDA graph B3 "
+          f"{_ms(out['graph_ms'])}"
+          f"{'' if out['graph_note'] is None else ' (' + out['graph_note'] + ')'}"
+          f"; bound {out['bound_ms']:.5f} ms ({live} live + {gathered} "
+          f"gathered bytes, {flops} flops)")
+    print("      device time by kernel: " + ", ".join(
+        f"{k[:40]} {v:.4f} ms" for k, v in sorted(
+            each.items(), key=lambda kv: -kv[1])[:4]))
+    return out
+
+
+def sharded_one_rank(mesh, cases, sr1_pairs, ffn_pairs) -> dict:
+    """The NCCL rank: (a) at R = 1, then (d)."""
+    out = {"a": b3_cases(mesh, cases)}
+    out["sr1"] = b3_timing(mesh, f"one SR1 frame's {len(sr1_pairs)} CSB "
+                           f"MVMs at batch 1", sr1_pairs)
+    out["ffn"] = {str(x.dtype).split(".")[-1]: b3_timing(
+        mesh, f"{ARCH}'s FFN, batch {LM_FFN_BATCH}, x {x.dtype}", [(p, x)])
+        for p, x in ffn_pairs}
+    return out
+
+
+def serve_sharded(mesh, layers, frames, want, lin, ffn_x, ffn_want) -> dict:
+    """(b) SR1 through ``rnn_serve_frames(mesh=...)`` and (c) ``csb_dense``
+    under ``use_rules``, each with both launch counts set to 0 just before
+    it and read just after; outputs and final states bit-equal to the
+    unsharded run through B1 and within 1e-4 of the masked-dense model,
+    and ``csb_dense`` equal to its unsharded run, or it raises."""
+    cfg = EngineConfig(frame_warmup=WARMUP, collect_frame_times=True)
+    csb_mvm.LAUNCHES = csb_sharded.LAUNCHES = 0
+    x, runs = frames, []
+    for (cell, csb), (y_b1, st_b1, y_dense, st_dense) in zip(layers, want):
+        y, st, us, frame_us = rnn_serve_frames(cell, csb, x, config=cfg,
+                                               mesh=mesh)
+        for a, b, c, what in [(y, y_b1, y_dense, "outputs")] + [
+                (st[k], st_b1[k], st_dense[k], f"state {k}") for k in st_b1]:
+            if not torch.equal(a, b):
+                raise AssertionError(
+                    f"{cell.name} {what}: sharded differ from unsharded B1 "
+                    f"by {float((a - b).abs().max()):.3e}")
+            if not torch.allclose(a, c, rtol=1e-4, atol=1e-4):
+                raise AssertionError(
+                    f"{cell.name} {what}: {float((a - c).abs().max()):.3e} "
+                    f"from the masked-dense model")
+        runs.append((us, frame_us, float((y - y_dense).abs().max())))
+        x = y
+    launches = {"b": {"b3": csb_sharded.LAUNCHES, "b1": csb_mvm.LAUNCHES}}
+    csb_mvm.LAUNCHES = csb_sharded.LAUNCHES = 0
+    with use_rules(Rules(mesh=mesh)):
+        for dtype, y_want in ffn_want.items():
+            y = csb_dense(ffn_x.to(dtype), lin)
+            if not torch.equal(y, y_want):
+                raise AssertionError(f"csb_dense {dtype} through the mesh "
+                                     f"differs from its unsharded run")
+    launches["c"] = {"b3": csb_sharded.LAUNCHES, "b1": csb_mvm.LAUNCHES}
+    frame_us = sum(r[1] for r in runs)
+    return {"launches": launches,
+            "us_per_frame": sum(r[0] for r in runs),
+            "p50_us": float(np.percentile(frame_us, 50)),
+            "p99_us": float(np.percentile(frame_us, 99)),
+            "dense_err": max(r[2] for r in runs),
+            "shards": sorted(lin._shards)}
+
+
+def sharded_two_ranks(mesh, cases, layers, frames, want, lin, ffn_x,
+                      ffn_want) -> dict:
+    out = {"a": b3_cases(mesh, cases)}
+    out["bc"] = serve_sharded(mesh, layers, frames, want, lin, ffn_x,
+                              ffn_want)
+    return out
+
+
+def sharded_four_ranks(mesh, cases) -> dict:
+    return {"a": b3_cases(mesh, cases)}
+
+
+def print_b3_cases(n_ranks, results) -> float:
+    """(a)'s per-rank results: plans (imbalance, rows per rank) and B1
+    launches per call; returns the max abs error from the plain version."""
+    r0 = results[0]["a"]
+    for other in results[1:]:
+        if other["a"]["plans"] != r0["plans"]:
+            raise AssertionError(f"ranks planned differently: "
+                                 f"{other['a']['plans']} vs {r0['plans']}")
+    per = {ov: sorted({r["a"]["b1_per_call"][(n, ov)] for r in results
+                       for n in r0["plans"]}) for ov in SHARD_OVERLAPS}
+    err = max(r["a"]["max_abs_err"] for r in results)
+    print(f"  (a) R = {n_ranks}: {len(r0['plans'])} matrices x overlap "
+          f"{SHARD_OVERLAPS} bit-equal to B1 on the unsharded matrix on "
+          f"every rank; max abs err from B3's plain version {err:.3e}; B1 "
+          f"launches per rank per call by overlap {per}")
+    for name, (imb, rows) in r0["plans"].items():
+        print(f"      {name:28s} imbalance {imb:.4f}, block-rows per rank "
+              f"{rows}")
+    return err
+
+
+def sharded_phase(dev, layers, frames, ffn) -> dict:
+    """Kernel B3 on one card: (a) against B1 at R = 1 (an NCCL group of
+    one), 2 and 4 (gloo ranks sharing the card), (b) SR1 served sharded
+    and (c) ``csb_dense`` through the mesh on two ranks, (d) B3 timed at
+    R = 1. Every rank is a process of its own (``spawn_ranks``); a rank
+    that fails makes the phase raise."""
+    rng = np.random.default_rng(SEED + 3)
+    cases, sr1_pairs = {}, []
+    for i, (cell, csb, _) in enumerate(layers):
+        for name, p in csb.items():
+            if isinstance(p, torch.Tensor):
+                continue
+            x = torch.from_numpy(rng.standard_normal(
+                (1, p.shape[1])).astype(np.float32)).to(dev)
+            cases[f"SR1 layer {i + 1} {name} {p.shape}"] = (
+                p, x, csb_matvec(p, x))
+            sr1_pairs.append((p, x))
+    frozen, ffn_pairs, ffn_want = ffn["frozen"], [], {}
+    p = frozen._packed
+    for dtype in (torch.float32, torch.bfloat16):
+        x = ffn["x"].to(dtype)
+        cases[f"{ARCH} FFN, x {str(dtype).split('.')[-1]}"] = (
+            p, x, csb_matvec(p, x))
+        ffn_pairs.append((p, x))
+        ffn_want[dtype] = csb_dense(x, frozen)
+    cfg = EngineConfig(frame_warmup=WARMUP)
+    want, x, xd = [], frames, frames
+    with torch.no_grad():
+        for cell, csb, dense in layers:
+            y, st, _ = rnn_serve_frames(cell, csb, x, config=cfg)
+            yd, std = rnn_scan(cell, dense, xd)
+            want.append((y, st, yd, std))
+            x, xd = y, yd
+    _sync(dev)
+    srv_layers = [(cell, csb) for cell, csb, _ in layers]
+    t = [time.perf_counter()]
+    one = spawn_ranks(sharded_one_rank, (1, 1), cases, sr1_pairs, ffn_pairs,
+                      timeout_s=SHARD_TIMEOUT_S)[0]
+    t.append(time.perf_counter())
+    two = spawn_ranks(sharded_two_ranks, (1, 2), cases, srv_layers, frames,
+                      want, frozen, ffn["x"], ffn_want,
+                      timeout_s=SHARD_TIMEOUT_S)
+    t.append(time.perf_counter())
+    four = spawn_ranks(sharded_four_ranks, (1, 4), cases,
+                       timeout_s=SHARD_TIMEOUT_S)
+    t.append(time.perf_counter())
+    err = max(print_b3_cases(1, [one]), print_b3_cases(2, two),
+              print_b3_cases(4, four))
+    bc = [r["bc"] for r in two]
+    # B1 launches a B3 call: one a chunk, DEFAULT_OVERLAP chunks unless a
+    # rank holds fewer block-rows (R = 2's plans, from (a))
+    chunks = {n: min(csb_sharded.DEFAULT_OVERLAP, max(rows))
+              for n, (_, rows) in two[0]["a"]["plans"].items()}
+    calls = WARMUP + 2 * FRAMES
+    sr1 = [n for n in chunks if n.startswith("SR1 ")]
+    expect = {"b": {"b3": calls * len(sr1),
+                    "b1": calls * sum(chunks[n] for n in sr1)},
+              "c": {"b3": len(ffn_want),
+                    "b1": sum(chunks[n] for n in chunks if "FFN" in n)}}
+    if len(sr1) != len(layers) * MVMS_PER_STEP:
+        raise AssertionError(f"{len(sr1)} SR1 matrices in (a)'s plans")
+    for r in bc:
+        if r["launches"] != expect or r["shards"] != [(2, "model")]:
+            raise AssertionError(f"(b), (c) on a rank: launches "
+                                 f"{r['launches']}, expected {expect}; "
+                                 f"shards {r['shards']}")
+    print(f"  (b) SR1 at full width, {FRAMES} frames at batch 1, over a "
+          f"(1, 2) ('data', 'model') mesh: outputs and final states "
+          f"bit-equal to the unsharded run through B1 on both ranks, "
+          f"{max(r['dense_err'] for r in bc):.3e} from the masked-dense "
+          f"model (bound 1e-4); two ranks sharing one card over gloo: not "
+          f"a multi-GPU number: us_per_frame "
+          f"{[round(r['us_per_frame'], 1) for r in bc]}, frame p50 "
+          f"{[round(r['p50_us'], 1) for r in bc]} us, p99 "
+          f"{[round(r['p99_us'], 1) for r in bc]} us (rank 0, rank 1)")
+    print(f"  (c) csb_dense at {ARCH}'s FFN through the mesh (fp32, bf16) "
+          f"equals its unsharded run on both ranks; launches on each rank, "
+          f"each counted from 0 just before its step: (b) "
+          f"{bc[0]['launches']['b']}, (c) {bc[0]['launches']['c']}")
+    print(f"  sharded phase: spawn + run R = 1 {t[1] - t[0]:.1f} s, R = 2 "
+          f"{t[2] - t[1]:.1f} s, R = 4 {t[3] - t[2]:.1f} s")
+    return {"max_abs_err": err, "launches": bc[0]["launches"]["b"]["b3"],
+            "b1_launches": bc[0]["launches"]["b"]["b1"],
+            "us_per_frame_2_ranks_gloo": bc[0]["us_per_frame"],
+            "frame_p99_us_2_ranks_gloo": bc[0]["p99_us"],
+            "sr1": one["sr1"], "ffn": one["ffn"],
+            "plans": {f"R{n}": r[0]["a"]["plans"]
+                      for n, r in ((1, [one]), (2, two), (4, four))}}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA device; none is available",
@@ -3033,6 +3412,7 @@ def main() -> int:
     ssd = phase("ssd", ssd_phase, dev)
     fe = phase("frontends", frontends_phase, dev)
     pp = phase("paper", paper_phase, dev, frames, sl, ffn)
+    sh = phase("sharded", sharded_phase, dev, layers, frames, ffn)
     print(f"[total {time.perf_counter() - t_start:.1f} s]")
     print(json.dumps({"kernels": [{
         **KERNEL, "launches": sl["launches"] + pp["launches"],
@@ -3099,6 +3479,22 @@ def main() -> int:
             "prefix_hits", "prefill_tokens_on", "prefill_tokens_off",
             "paged_bfloat16", "disagg_bfloat16")}, "router": rt},
         "frontends": fe,
+    }, {
+        **SHARDED_KERNEL, "launches": sh["launches"],
+        "max_abs_err": sh["max_abs_err"], "ms": sh["sr1"]["ms"],
+        "plain_ms": sh["sr1"]["plain_ms"], "bound_ms": sh["sr1"]["bound_ms"],
+        "bound_by": sh["sr1"]["bound_by"],
+        **{k: sh["sr1"][k] for k in (
+            "ms_overlap1", "b1_ms", "device_ms", "b1_device_ms",
+            "allgather_device_ms", "allgather_share", "graph_ms",
+            "graph_note")},
+        **{f"lm_ffn_{d}_{k}": v for d, r in sh["ffn"].items()
+           for k, v in r.items()},
+        "b1_launches": sh["b1_launches"],
+        "us_per_frame_2_ranks_gloo": sh["us_per_frame_2_ranks_gloo"],
+        "frame_p99_us_2_ranks_gloo": sh["frame_p99_us_2_ranks_gloo"],
+        "imbalance": {r: {n: v[0] for n, v in plans.items()}
+                      for r, plans in sh["plans"].items()},
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

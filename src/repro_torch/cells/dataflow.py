@@ -7,7 +7,9 @@ by Li-GRU/GRU). ``Op``, ``CellGraph`` and ``GraphBuilder`` are copies of
 the JAX package's (plain Python); ``cell_apply`` interprets the DAG on
 tensors, so every cell type runs on one code path. MVM weights may be
 dense tensors or ``PaddedCSB`` matrices, which go through
-``kernels.ops.csb_matvec`` (the CUDA kernel on the card).
+``kernels.ops.csb_matvec`` (the CUDA kernel on the card), or, under a
+``use_rules`` mesh with a "model" axis larger than 1, ``ShardedCSB``
+matrices, which go through kernel B3 (``kernels.csb_sharded``).
 """
 from __future__ import annotations
 
@@ -17,7 +19,7 @@ import numpy as np
 import torch
 
 from repro_torch._device import resolve_device
-from repro_torch.core.csb_format import PaddedCSB
+from repro_torch.core.csb_format import PaddedCSB, ShardedCSB
 from repro_torch.kernels.ops import csb_matvec
 
 KINDS = ("input", "mvm", "bias", "add", "mul",
@@ -135,6 +137,15 @@ class GraphBuilder:
 # ---------------------------------------------------------------------------
 
 def _apply_mvm(w, x: torch.Tensor) -> torch.Tensor:
+    if isinstance(w, ShardedCSB):
+        from repro_torch.dist.api import active_model_mesh
+        from repro_torch.kernels.csb_sharded import csb_matvec_sharded
+        mesh = active_model_mesh()
+        if mesh is None:
+            raise ValueError(
+                "ShardedCSB cell weight needs an active use_rules scope "
+                "whose mesh has a non-trivial 'model' axis")
+        return csb_matvec_sharded(w, x, mesh=mesh).to(x.dtype)
     if isinstance(w, PaddedCSB):
         return csb_matvec(w, x, device=x.device).to(x.dtype)
     return torch.matmul(x, w.to(x.dtype).T)

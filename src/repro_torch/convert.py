@@ -6,8 +6,9 @@ port's parameters, so that both packages can run identical weights. A
 dense weight or bias is an ndarray; a ``PaddedCSB`` is a mapping with
 the keys ``vals``, ``row_idx``, ``col_idx``, ``m``, ``n``, ``shape``,
 ``grid`` and ``block``. ``lm_params_from_numpy`` does the same for a
-decoder LM's parameter tree. bf16 arrays (numpy's ``bfloat16`` extension
-type) keep their bits. This module imports no JAX.
+decoder LM's parameter tree, and ``sharded_csb_from_numpy`` for a
+``ShardedCSB`` (the same mapping plus ``row_map``). bf16 arrays (numpy's
+``bfloat16`` extension type) keep their bits. This module imports no JAX.
 """
 from __future__ import annotations
 
@@ -17,7 +18,7 @@ import numpy as np
 import torch
 
 from repro_torch._device import resolve_device
-from repro_torch.core.csb_format import PaddedCSB
+from repro_torch.core.csb_format import PaddedCSB, ShardedCSB
 
 _CSB_ARRAYS = ("vals", "row_idx", "col_idx", "m", "n")
 
@@ -46,6 +47,22 @@ def cell_params_from_numpy(params: Mapping, device=None) -> dict:
         else:
             out[name] = _tensor(w, dev)
     return out
+
+
+def sharded_csb_from_numpy(leaves: Mapping, device=None) -> ShardedCSB:
+    """The JAX package's ``ShardedCSB`` as a mapping of numpy leaves
+    (``vals``, ``row_idx``, ``col_idx``, ``m``, ``n``, each with its
+    leading device axis) and statics (``shape``, ``grid``, ``block``,
+    ``row_map``) -> the port's, every device's shard on ``device``
+    (``None`` means the card)."""
+    dev = resolve_device(device)
+    return ShardedCSB(
+        **{k: _tensor(leaves[k], dev) for k in _CSB_ARRAYS},
+        shape=tuple(int(v) for v in leaves["shape"]),
+        grid=tuple(int(v) for v in leaves["grid"]),
+        block=tuple(int(v) for v in leaves["block"]),
+        row_map=tuple(tuple(int(r) for r in rows)
+                      for rows in leaves["row_map"]))
 
 
 def _tree(t, dev):

@@ -1,10 +1,10 @@
 """repro_torch.core — the paper's primary contribution: CSB pruning.
 
-Public surface (the JAX package's, but ``ShardedCSB``, which waits for
-the multi-GPU slice):
+Public surface (the JAX package's):
   CSBSpec, csb_project, csb_masks, kernel_sizes    (projection, Alg. 1 inner)
   magnitude_project, bank_balanced_project, row_column_project  (baselines)
   CSBMatrix, PaddedCSB, padded_csb_from_dense      (formats, Fig. 3)
+  ShardedCSB                                       (block-rows over a mesh)
   ADMMState, admm_init/penalty/update/finalize     (Eqns. 2-6)
   ProgressivePruner                                (Alg. 1 outer loop)
   CSBLinear, csb_specs_for_params                  (the model layer)
@@ -23,7 +23,12 @@ from .pruning import (
     row_column_project,
     to_blocks,
 )
-from .csb_format import CSBMatrix, PaddedCSB, padded_csb_from_dense
+from .csb_format import (
+    CSBMatrix,
+    PaddedCSB,
+    ShardedCSB,
+    padded_csb_from_dense,
+)
 from .admm import (
     ADMMState,
     admm_finalize,
@@ -40,7 +45,7 @@ __all__ = [
     "CSBSpec", "csb_project", "csb_masks", "kernel_sizes", "density",
     "element_mask", "to_blocks", "from_blocks", "pad_to_blocks",
     "magnitude_project", "bank_balanced_project", "row_column_project",
-    "CSBMatrix", "PaddedCSB", "padded_csb_from_dense",
+    "CSBMatrix", "PaddedCSB", "ShardedCSB", "padded_csb_from_dense",
     "ADMMState", "admm_init", "admm_penalty", "admm_update",
     "admm_finalize", "residual_norm", "spec_tree_map",
     "ProgressivePruner", "ProgressiveState",

@@ -10,10 +10,17 @@ values ``Val{}`` in block row-major order.
 every kernel is padded to a common ``(Pm, Pn)`` and the CSB-MVM kernel
 masks the pad lanes with ``m``/``n``. Field for field it equals the JAX
 package's ``PaddedCSB``.
+
+``ShardedCSB`` is a ``PaddedCSB`` split over the ranks of a mesh axis by
+block-row (``PaddedCSB.split_block_rows``; the planner in
+``repro_torch.dist.csb_partition`` picks the split): every tensor gains a
+leading device axis. A rank keeps only its own shard (``local``), since
+the port runs one process per rank.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Sequence
 
 import numpy as np
 import torch
@@ -204,6 +211,135 @@ class PaddedCSB:
 
     def true_flops_per_mvm(self) -> int:
         return int(2 * torch.sum(self.m.to(torch.int64) * self.n))
+
+    # -- device sharding (mesh-level balancing, paper §5.2 lifted) ----------
+    def split_block_rows(
+        self, assignment: Sequence[Sequence[int]]
+    ) -> "ShardedCSB":
+        """Split the block grid over devices by BLOCK-ROW.
+
+        ``assignment[d]`` lists the global block-row ids device ``d`` owns
+        (a partition of ``range(Br)``). Devices with fewer rows are padded
+        with empty rows (``m = n = 0`` blocks, which the kernel writes as
+        zeros), so every shard has the same shape. The pad rows' other
+        arrays repeat block-row 0's, as in the JAX package."""
+        br, bc = self.grid
+        n_dev = len(assignment)
+        flat = sorted(r for rows in assignment for r in rows)
+        if flat != list(range(br)):
+            raise ValueError(
+                f"assignment must partition range({br}), got {assignment}")
+        rpd = max(max((len(rows) for rows in assignment), default=0), 1)
+        gather = np.zeros((n_dev, rpd), np.int64)
+        valid = np.zeros((n_dev, rpd), bool)
+        for d, rows in enumerate(assignment):
+            gather[d, : len(rows)] = rows
+            valid[d, : len(rows)] = True
+
+        dev = self.vals.device
+        pm, pn = self.pm, self.pn
+        g = torch.from_numpy(gather).to(dev)
+        live = torch.from_numpy(valid).to(dev)[:, :, None]      # (D, R, 1)
+        return ShardedCSB(
+            vals=self.vals.reshape(br, bc, pm, pn)[g].reshape(
+                n_dev, rpd * bc, pm, pn),
+            row_idx=self.row_idx.reshape(br, bc, pm)[g].reshape(
+                n_dev, rpd * bc, pm),
+            col_idx=self.col_idx.reshape(br, bc, pn)[g].reshape(
+                n_dev, rpd * bc, pn),
+            m=torch.where(live, self.m.reshape(br, bc)[g], 0).reshape(
+                n_dev, rpd * bc),
+            n=torch.where(live, self.n.reshape(br, bc)[g], 0).reshape(
+                n_dev, rpd * bc),
+            shape=self.shape, grid=self.grid, block=self.block,
+            row_map=tuple(tuple(int(r) for r in rows) for rows in assignment),
+        )
+
+
+_SHARD_ARRAYS = ("vals", "row_idx", "col_idx", "m", "n")
+
+
+@dataclasses.dataclass
+class ShardedCSB:
+    """A ``PaddedCSB`` split over devices by block-row: every tensor has a
+    leading device axis, and ``row_map`` records which global block-rows
+    each device owns (in local-slot order), so that outputs can be put
+    back in order after the all-gather. ``rank`` is None while the tensors
+    hold every device's shard, and ``r`` once they hold only rank ``r``'s
+    (a leading axis of 1; see ``local``). Consumed by
+    ``repro_torch.kernels.csb_sharded.csb_matvec_sharded``."""
+
+    vals: torch.Tensor              # (D, R*Bc, Pm, Pn)
+    row_idx: torch.Tensor           # (D, R*Bc, Pm)
+    col_idx: torch.Tensor           # (D, R*Bc, Pn)
+    m: torch.Tensor                 # (D, R*Bc) — 0 on pad rows
+    n: torch.Tensor                 # (D, R*Bc)
+    shape: tuple[int, int] = (0, 0)
+    grid: tuple[int, int] = (0, 0)
+    block: tuple[int, int] = (0, 0)
+    # per-device global block-row ids, local-slot order
+    row_map: tuple[tuple[int, ...], ...] = ()
+    rank: int | None = None
+
+    @property
+    def n_dev(self) -> int:
+        return len(self.row_map)
+
+    @property
+    def rows_per_dev(self) -> int:
+        return self.vals.shape[1] // self.grid[1]
+
+    @property
+    def pm(self) -> int:
+        return self.vals.shape[-2]
+
+    @property
+    def pn(self) -> int:
+        return self.vals.shape[-1]
+
+    def to(self, device) -> "ShardedCSB":
+        """The same shards with every tensor on ``device``."""
+        return dataclasses.replace(self, **{
+            k: getattr(self, k).to(device) for k in _SHARD_ARRAYS})
+
+    def local(self, rank: int) -> "ShardedCSB":
+        """Rank ``rank``'s shard alone: views of its slice of every tensor
+        (contiguous, with a leading axis of 1)."""
+        if self.rank is not None:
+            if rank != self.rank:
+                raise ValueError(f"this ShardedCSB holds rank {self.rank}'s "
+                                 f"shard, not rank {rank}'s")
+            return self
+        if not 0 <= rank < self.n_dev:
+            raise ValueError(f"rank {rank} outside 0..{self.n_dev - 1}")
+        return dataclasses.replace(self, rank=rank, **{
+            k: getattr(self, k)[rank: rank + 1] for k in _SHARD_ARRAYS})
+
+    def shard_arrays(self, rank: int) -> tuple[torch.Tensor, ...]:
+        """(vals, row_idx, col_idx, m, n) of rank ``rank``'s shard, without
+        the device axis: the arrays of one ``(R, Bc)`` block grid."""
+        s = self.local(rank)
+        return tuple(getattr(s, k)[0] for k in _SHARD_ARRAYS)
+
+    def output_permutation(self) -> np.ndarray:
+        """``perm`` s.t. ``y_global[:, i] = y_gathered[:, perm[i]]`` where
+        ``y_gathered`` concatenates per-device outputs (pad rows included)
+        in device order."""
+        return csb_output_permutation(
+            self.row_map, self.rows_per_dev, self.block[0], self.grid[0])
+
+
+def csb_output_permutation(row_map, rows_per_dev: int, bm: int,
+                           br: int) -> np.ndarray:
+    """Gather-order -> block-row-order output permutation (see
+    :meth:`ShardedCSB.output_permutation`; standalone so that the kernel's
+    cache can rebuild it from hashable statics alone)."""
+    perm = np.zeros(br * bm, np.int64)
+    for d, rows in enumerate(row_map):
+        for s, r in enumerate(rows):
+            src = (d * rows_per_dev + s) * bm
+            perm[r * bm: (r + 1) * bm] = np.arange(src, src + bm)
+    return perm
 
 
 def _host(a) -> np.ndarray | None:

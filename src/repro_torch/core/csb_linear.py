@@ -7,11 +7,12 @@ Modes:
             the projection is the Z-update; autograd sees ``w * mask``)
   csb     — the ``PaddedCSB`` format through ``kernels.ops.csb_matvec``
             (serving: the CUDA kernel on the card, its plain version on
-            the CPU).
-
-The JAX package also runs the csb mode sharded over a mesh's "model"
-axis (``shard_for_mesh``, ``csb_matvec_sharded``); that waits for the
-port's multi-GPU slice, and both raise here.
+            the CPU). When a mesh with a "model" axis larger than 1 is
+            active (``dist.use_rules``), or passed as ``mesh``, the block
+            grid is partitioned over that axis by cycle cost
+            (``dist.csb_partition``) and run through kernel B3
+            (``kernels.csb_sharded``); ``shard_for_mesh`` builds and
+            caches this rank's shard.
 
 `csb_specs_for_params` builds the spec tree that ADMM consumes,
 selecting every >= min_dim 2-D/stacked-3-D projection of a model.
@@ -27,9 +28,6 @@ from .csb_format import PaddedCSB, padded_csb_from_dense
 from .pruning import CSBSpec, csb_masks, csb_project
 
 PyTree = Any
-
-_MESH = ("the sharded CSB path waits for the multi-device slice of the "
-         "port (ROADMAP item 21: sharded CSB)")
 
 
 class CSBLinear(nn.Module):
@@ -53,6 +51,10 @@ class CSBLinear(nn.Module):
         self.mode = mode
         self.transposed = transposed
         self._packed = packed
+        # (n_dev, axis) -> (PartitionPlan, this rank's ShardedCSB): the
+        # placement runs once per mesh width, not once per call; a new
+        # module (freeze) starts with an empty cache
+        self._shards: dict = {}
 
     def _w_oi(self) -> torch.Tensor:
         return self.weight.T if self.transposed else self.weight
@@ -70,9 +72,33 @@ class CSBLinear(nn.Module):
                          packed)
 
     def shard_for_mesh(self, mesh, axis: str = "model"):
-        raise NotImplementedError(f"CSBLinear.shard_for_mesh: {_MESH}")
+        """(plan, ShardedCSB) for this weight on ``mesh[axis]``: cycle-
+        balanced by the greedy planner, planned on the host by every rank
+        alike (checked across the axis), cached per mesh width; the
+        ShardedCSB holds this rank's shard alone, on the weight's
+        device."""
+        if self._packed is None:
+            raise RuntimeError("call freeze() first")
+        import torch.distributed as dist
+
+        from repro_torch.dist.api import axis_sizes, require_mesh
+        from repro_torch.dist.csb_partition import (
+            check_plans, partition_padded,
+        )
+        n_dev = axis_sizes(require_mesh(mesh))[axis]
+        key = (n_dev, axis)
+        if key not in self._shards:
+            group = mesh.get_group(axis)
+            plan, s = partition_padded(self._packed.to("cpu"), n_dev)
+            check_plans([s.row_map], group)
+            self._shards[key] = (plan, s.local(dist.get_rank(group)).to(
+                self._packed.vals.device))
+        return self._shards[key]
 
     def forward(self, x: torch.Tensor, mesh=None) -> torch.Tensor:
+        """``mesh`` (a ``DeviceMesh``) defaults to the active Rules' mesh;
+        either runs the csb mode sharded where its "model" axis is larger
+        than 1."""
         if self.mode == "dense":
             w = self._w_oi()
         elif self.mode == "masked":
@@ -80,8 +106,18 @@ class CSBLinear(nn.Module):
         else:
             if self._packed is None:
                 raise RuntimeError("call freeze() first")
+            from repro_torch.dist.api import (
+                active_model_mesh, axis_sizes, require_mesh,
+            )
+            if mesh is None or axis_sizes(require_mesh(mesh)).get(
+                    "model", 1) <= 1:
+                mesh = active_model_mesh()
             if mesh is not None:
-                raise NotImplementedError(f"CSBLinear(mesh=...): {_MESH}")
+                from repro_torch.kernels.csb_sharded import (
+                    csb_matvec_sharded,
+                )
+                _, sharded = self.shard_for_mesh(mesh)
+                return csb_matvec_sharded(sharded, x, mesh=mesh).to(x.dtype)
             # imported here: kernels.ops imports core.csb_format
             from repro_torch.kernels.ops import csb_matvec
             return csb_matvec(self._packed, x, device=x.device).to(x.dtype)

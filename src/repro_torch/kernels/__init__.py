@@ -4,7 +4,10 @@
 decode attention) are built on first use by ``_build``; ``csb_mvm`` and
 ``paged_attn`` are their launch wrappers, ``ref`` their plain PyTorch
 versions and ``ops`` the public entry points ``csb_matvec`` and
-``paged_attn_decode``.
+``paged_attn_decode``. ``csb_sharded`` is kernel B3,
+``csb_matvec_sharded``: B1 on each rank's block-row shard of a
+``ShardedCSB`` plus ``torch.distributed`` all-gathers (imported on its
+own: it reads ``repro_torch.dist``).
 """
 from .ops import csb_matvec, pad_to_grid, paged_attn_decode
 from .ref import csb_mvm_ref, densify, paged_attn_ref

@@ -49,11 +49,13 @@ def dense(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 def csb_dense(x: torch.Tensor, lin) -> torch.Tensor:
     """A projection through a ``core.CSBLinear`` — the CSB-pruned twin
     of :func:`dense`. A frozen weight runs the CSB-MVM kernel (its plain
-    version on the CPU).
+    version on the CPU); under a ``use_rules`` mesh with a "model" axis
+    larger than 1 its block grid is partitioned over that axis and run
+    through kernel B3 (``core.CSBLinear``).
 
-    The JAX package also partitions a frozen weight over a mesh's "model"
-    axis and tags the output with the "residual" layout; the port has no
-    mesh until its multi-GPU slice, so neither happens here."""
+    The JAX package also tags the output with the "residual" layout;
+    activation layouts wait for the port's sharded dense layers (ROADMAP
+    item 20), so none is applied here."""
     return lin(x).to(x.dtype)
 
 

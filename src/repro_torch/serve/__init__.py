@@ -14,7 +14,8 @@ through ``simulate_admission``) and simulates fleet-wide SLO attainment;
 ``scheduler`` owns request admission and slot- and page-granular cache
 writes; ``paging`` the fixed-size token-page pool (free list, dense page
 table, refcounted prefix trie) behind the paged cache. The exports are
-JAX's but ``shard_cell_params``, which waits for the multi-GPU slice.
+JAX's; ``shard_cell_params`` partitions an RNN cell's CSB weights over a
+``DeviceMesh``'s "model" axis for ``rnn_serve_frames(mesh=...)``.
 """
 from .config import EngineConfig, resolve_config  # noqa: F401
 from .disagg import (
@@ -29,6 +30,7 @@ from .engine import (
     generate,
     rnn_serve_frames,
     serve_continuous,
+    shard_cell_params,
 )
 from .paging import PagePool, SharedInfo, pages_for
 from .router import (
@@ -61,7 +63,7 @@ from .scheduler import (
 
 __all__ = [
     "EngineConfig", "ServeResult", "bucket_len",
-    "generate", "rnn_serve_frames", "serve_continuous",
+    "generate", "rnn_serve_frames", "serve_continuous", "shard_cell_params",
     "DecodeTier", "PageHandoff", "PrefillTier", "serve_disaggregated",
     "POLICIES", "Router", "RouterResult", "make_arrival_trace", "route",
     "simulate_replicas",

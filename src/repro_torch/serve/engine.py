@@ -18,13 +18,16 @@ paged-attention CUDA kernel.
 inference (one MVM-bound cell step per frame) with CSB-compressed
 weights; it returns per-frame outputs and the wall-clock time per frame,
 so the faster-than-realtime criterion (<500 us/frame for speech) can be
-checked on the card.
+checked on the card. With a ``DeviceMesh`` (one process per rank) its
+CSB weights are partitioned over the mesh's "model" axis and run through
+kernel B3, and the frame batch is split over the other axes.
 
-The mesh-sharded variants wait for the port of the multi-device layer.
+The mesh-sharded LM engines wait for the port's sharded dense layers.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 import time
 
 import numpy as np
@@ -32,6 +35,9 @@ import torch
 
 from repro_torch._device import resolve_device
 from repro_torch.cells import CellGraph, cell_apply, init_state
+from repro_torch.dist.api import (
+    Rules, axis_sizes, current_rules, require_mesh, use_rules,
+)
 from repro_torch.models import ModelConfig
 from repro_torch.models import lm as LM
 from repro_torch.obs import metrics as obs_metrics, trace as obs_trace
@@ -653,10 +659,80 @@ def _to_device(tree, dev):
     return tree.to(dev)
 
 
+def _resolve_mesh(mesh):
+    """Explicit mesh arg, else the active Rules' mesh; trivial -> None.
+    A mesh is a ``torch.distributed.device_mesh.DeviceMesh``."""
+    if mesh is None:
+        mesh = getattr(current_rules(), "mesh", None)
+    if mesh is None:
+        return None
+    return mesh if require_mesh(mesh).size() > 1 else None
+
+
+def shard_cell_params(params: dict, mesh, axis_name: str = "model") -> dict:
+    """Cycle-balance every ``PaddedCSB`` cell weight over
+    ``mesh[axis_name]`` (``dist.csb_partition``'s greedy planner, run on
+    the host by every rank alike; the ranks check that their plans agree)
+    and place the tree with ``csb_shard_specs``: a weight split over the
+    axis keeps this rank's shard alone, on the weight's device. After this,
+    ``cell_apply`` under ``use_rules`` routes each MVM through kernel B3."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import Shard
+
+    from repro_torch.core.csb_format import PaddedCSB, ShardedCSB
+    from repro_torch.dist.csb_partition import check_plans, partition_padded
+    from repro_torch.dist.rules import csb_shard_specs
+
+    n_dev = axis_sizes(mesh)[axis_name]
+    group = mesh.get_group(axis_name)
+    out = {k: (partition_padded(w.to("cpu"), n_dev)[1]
+               if isinstance(w, PaddedCSB) else w)
+           for k, w in params.items()}
+    check_plans([w.row_map for w in out.values()
+                 if isinstance(w, ShardedCSB)], group)
+    specs = csb_shard_specs(out, mesh, axis=axis_name)
+    rank = dist.get_rank(group)
+    for k, w in out.items():
+        if isinstance(w, ShardedCSB):
+            if isinstance(specs[k].vals, Shard):
+                w = w.local(rank)
+            out[k] = w.to(params[k].vals.device)
+    return out
+
+
+def _data_axes(mesh, axis_name: str) -> list[str]:
+    """The mesh's other axes larger than 1: the frame batch is split over
+    them, outer axis first."""
+    return [a for a, n in axis_sizes(mesh).items()
+            if a != axis_name and n > 1]
+
+
+def _barrier(mesh) -> None:
+    """Every rank of ``mesh`` has arrived: a barrier over each axis in
+    turn (a rank that passed all of them has seen every rank arrive)."""
+    import torch.distributed as dist
+    for a, n in axis_sizes(mesh).items():
+        if n > 1:
+            dist.barrier(group=mesh.get_group(a))
+
+
+def _gather_batch(t: torch.Tensor, mesh, axes: list[str],
+                  dim: int) -> torch.Tensor:
+    """Undo the batch split: all-gather ``t`` along ``dim`` over each data
+    axis, inner axis first."""
+    import torch.distributed as dist
+    for a in reversed(axes):
+        parts = [torch.empty_like(t) for _ in range(axis_sizes(mesh)[a])]
+        dist.all_gather(parts, t.contiguous(), group=mesh.get_group(a))
+        t = torch.cat(parts, dim=dim)
+    return t
+
+
 def rnn_serve_frames(graph: CellGraph, params: dict, frames,
                      state: dict | None = None,
                      warmup: int | None = None,
                      *, config: EngineConfig | None = None, mesh=None,
+                     axis_name: str = "model",
                      collect_frame_times: bool | None = None,
                      device=None):
     """frames: (T, B, in_dim) tensor or array. Weights may be dense
@@ -668,9 +744,20 @@ def rnn_serve_frames(graph: CellGraph, params: dict, frames,
     ``warmup`` and ``collect_frame_times`` arguments override them when
     given explicitly.
 
+    With ``mesh=`` (a ``DeviceMesh``; or the active Rules' mesh), called
+    on every rank with the whole ``frames``: the CSB weights are
+    partitioned over ``mesh[axis_name]`` (``shard_cell_params``) and run
+    through kernel B3, each rank serves its share of the batch along the
+    other axes (where the batch divides among them, as JAX's
+    divisibility guard has it; else every rank serves all of it), and the
+    outputs and final state are gathered back, so that every rank returns
+    what the unsharded call returns. A trivial mesh is no mesh.
+
     Returns (outputs (T,B,H), final state, us_per_frame). ``us_per_frame``
     comes from an unblocked pass over all frames that synchronises the
-    device once, at its end: the throughput number.
+    device once, at its end: the throughput number. On a mesh it and the
+    frame times are the rank's own wall clock, each pass started after a
+    barrier.
 
     ``collect_frame_times=True`` appends a 4th element: a ``(T,)`` numpy
     array of per-frame wall microseconds from a second pass that waits
@@ -678,10 +765,6 @@ def rnn_serve_frames(graph: CellGraph, params: dict, frames,
     number realtime audio cares about. That pass also records the
     ``serve/frame`` spans and the ``serve/frames/wall_us`` histogram when
     ``repro_torch.obs`` is enabled, after each frame's timing."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "rnn_serve_frames(mesh=...) waits for the multi-device slice "
-            "of the port (slice 5: sharded CSB)")
     fcfg = resolve_config(config, caller="rnn_serve_frames")
     if warmup is None:
         warmup = fcfg.frame_warmup
@@ -693,24 +776,48 @@ def rnn_serve_frames(graph: CellGraph, params: dict, frames,
         # the JAX package computes in fp32 (x64 is off there)
         frames = frames.to(torch.float32)
     params = {k: w.to(dev) for k, w in params.items()}
+    if state is not None:
+        state = {k: v.to(dev) for k, v in state.items()}
+    mesh = _resolve_mesh(mesh)
+    rules, dp = current_rules(), []
+    if mesh is not None:
+        if axis_sizes(mesh).get(axis_name, 1) > 1:
+            params = shard_cell_params(params, mesh, axis_name)
+        dp = _data_axes(mesh, axis_name)
+        n_dp = math.prod(axis_sizes(mesh)[a] for a in dp)
+        if frames.shape[1] % n_dp:      # JAX's guard: the batch replicated
+            dp = []
+        if dp:
+            index = 0
+            for a in dp:
+                index = index * axis_sizes(mesh)[a] + mesh.get_local_rank(a)
+            per = frames.shape[1] // n_dp
+            frames = frames[:, index * per:(index + 1) * per]
+            if state is not None:
+                state = {k: v[index * per:(index + 1) * per]
+                         for k, v in state.items()}
+        if rules is None or rules.mesh is not mesh:
+            rules = Rules(mesh=mesh)
+    if rules is None:
+        rules = Rules()
     if state is None:
         state = init_state(graph, tuple(frames.shape[1:-1]), torch.float32,
                            device=dev)
-    else:
-        state = {k: v.to(dev) for k, v in state.items()}
     sync = (torch.cuda.synchronize if dev.type == "cuda"
             else (lambda: None))
+    start = (lambda: _barrier(mesh)) if mesh is not None else (lambda: None)
 
     def step(st, x):
         return cell_apply(graph, params, x, st)
 
     n = frames.shape[0]
-    with torch.no_grad():
+    with torch.no_grad(), use_rules(rules):
         for _ in range(warmup):
             step(state, frames[0])
         sync()
 
         outs = []
+        start()
         t0 = time.perf_counter()
         st = state
         for t in range(n):
@@ -728,6 +835,7 @@ def rnn_serve_frames(graph: CellGraph, params: dict, frames,
             reg = obs_metrics.get()
             frame_us = np.empty(n)
             st2 = state
+            start()
             for t in range(n):
                 f0 = time.perf_counter_ns()
                 _, st2 = step(st2, frames[t])
@@ -739,7 +847,11 @@ def rnn_serve_frames(graph: CellGraph, params: dict, frames,
                                 args={"frame": t})
                 if reg is not None:
                     reg.histogram("serve/frames/wall_us").observe(dur / 1e3)
+        ys = torch.stack(outs)
+        if dp:
+            ys = _gather_batch(ys, mesh, dp, 1)
+            st = {k: _gather_batch(v, mesh, dp, 0) for k, v in st.items()}
     us_per_frame = dt / n * 1e6
     if collect_frame_times:
-        return torch.stack(outs), st, us_per_frame, frame_us
-    return torch.stack(outs), st, us_per_frame
+        return ys, st, us_per_frame, frame_us
+    return ys, st, us_per_frame

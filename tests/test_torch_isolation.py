@@ -51,6 +51,37 @@ def test_paper_subpackages_alone_load_no_jax_or_repro(module):
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
 
 
+@pytest.mark.parametrize("module", ["repro_torch.dist",
+                                    "repro_torch.dist.launch",
+                                    "repro_torch.kernels.csb_sharded"])
+def test_sharded_modules_alone_load_no_jax_or_repro(module):
+    """The sharded CSB path's modules, imported first and alone in a fresh
+    process, load no JAX and nothing of ``repro``."""
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    probe = (f"import json, sys, {module}; print(json.dumps(sorted(k for k "
+             f"in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', "
+             f"'repro'))))")
+    out = subprocess.run([sys.executable, "-c", probe], capture_output=True,
+                         text=True, env=env, cwd=ROOT, timeout=240)
+    assert out.returncode == 0, out.stderr
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+def _loaded_modules(mesh):
+    """Run in each spawned rank: the JAX and ``repro`` modules loaded
+    after the sharded serving path is imported."""
+    import repro_torch.kernels.csb_sharded  # noqa: F401
+    import repro_torch.serve  # noqa: F401
+    return sorted(k for k in sys.modules
+                  if k.split(".")[0] in ("jax", "jaxlib", "repro"))
+
+
+def test_spawned_ranks_load_no_jax_or_repro():
+    from repro_torch.dist.launch import spawn_ranks
+    assert spawn_ranks(_loaded_modules, (1, 2), device="cpu",
+                       timeout_s=120) == [[], []]
+
+
 @pytest.mark.parametrize("path", sorted(
     str(p.relative_to(ROOT)) for p in [*PKG.rglob("*.py"),
                                        ROOT / "chip_smoke.py",

@@ -8,7 +8,7 @@ JAX's single-engine tokens on tests/test_disagg.py's trace, with JAX's
 ``PRNGKey(0)`` parameters carried across. Also: the validation errors,
 each replica's generator restarted from the caller's state (JAX hands
 every replica the same key), and ``repro_torch.serve`` exporting JAX's
-names but ``shard_cell_params`` (the multi-GPU slice)."""
+names."""
 import jax
 import numpy as np
 import pytest
@@ -199,9 +199,9 @@ def test_router_mesh_raises(tiny):
 
 
 def test_serve_exports_match_jax():
-    """``repro_torch.serve`` exports JAX's names, all of them bound, but
-    ``shard_cell_params`` (it waits for the multi-GPU slice)."""
-    assert set(T.__all__) == set(J.__all__) - {"shard_cell_params"}
+    """``repro_torch.serve`` exports JAX's names, all of them bound
+    (``shard_cell_params`` among them)."""
+    assert set(T.__all__) == set(J.__all__)
     assert len(T.__all__) == len(set(T.__all__))
     for name in T.__all__:
         assert getattr(T, name) is not None

@@ -93,9 +93,11 @@ def test_obs_off_and_three_tuple():
     assert obs.trace.get() is None and obs.metrics.get() is None
 
 
-def test_mesh_waits_for_slice_5():
+def test_mesh_must_be_a_device_mesh():
+    """The sharded path takes a ``DeviceMesh`` (tests/test_torch_csb_sharded
+    .py serves over real ones); any other object is refused."""
     cell, params = _tiny()
-    with pytest.raises(NotImplementedError, match="slice 5"):
+    with pytest.raises(TypeError, match="DeviceMesh, got object"):
         rnn_serve_frames(cell, params, torch.zeros(1, 1, 4), mesh=object(),
                          device="cpu")
 
