@@ -217,6 +217,33 @@ Phases, each of which raises (and the script exits nonzero) on failure:
    live bytes plus the gathered rows). A rank that fails or outlives its
    deadline fails the phase.
 
+15. Training (``[phase train]``), last. TF32 is off (printed). (a)
+   gemma-2b at full width and depth (18 layers, d_model 2048, 8 heads
+   over 1 KV head of 256, GeGLU d_ff 16384, vocab 256000, untied head:
+   3.03 B parameters, bf16) through ``repro_torch.launch.train.main``, the
+   JAX launcher's defaults (batch 8, seq 128, AdamW with fp32 moments,
+   lr 1e-3 warmed up over 10 steps, clip 1.0, remat on), 8 steps: every
+   loss finite; peak memory, step wall p50/p99 over steps 1-7, tokens/s,
+   each step's loss; at the trained weights every gradient leaf finite
+   and the global norm above 0; a profile of three steps through
+   ``make_train_step`` (kernels a step, the device's busy share, the top
+   device ops); AdamW's update timed alone against its bytes bound. (b)
+   ADMM-CSB on the FFN (w_gate, w_up, w_down at ``CSBSpec(32, 32,
+   0.75)``, examples/train_lm_e2e.py's) at full width, depth cut to 2
+   layers: 6 steps of ``train`` with the penalty, ``admm_update`` every 3,
+   ``admm_finalize``; every matrix's density <= 0.31 (0.25 + the 0.06
+   cross-point allowance of tests/test_train.py:76); each frozen through
+   ``CSBLinear(transposed=True)`` (its packing holds the finalized weight
+   exactly) and one batch's FFN inputs through ``csb_dense`` into B1
+   (6 launches), within phase 3's bf16 bound of the masked-dense product.
+   (c) reduced gemma-2b (fp32) trained 5 steps on the card and on the
+   CPU from the same weights and numpy batches, losses within 1e-4; then
+   on the card 4 steps with checkpoints every 2 and a fresh ``train`` on
+   that directory to step 6, its params bit-equal to 6 uninterrupted
+   steps under ``torch.use_deterministic_algorithms(True)``
+   (``CUBLAS_WORKSPACE_CONFIG`` is set before cuBLAS starts). A JSON line
+   ``{"train": ...}`` holds the phase's numbers.
+
 The line before the last is a JSON object with one entry per kernel (B1,
 B2, B3); the last line is ``{"ok": true, "device": {...}}``. Without CUDA the script
 exits nonzero and prints no result.
@@ -246,13 +273,17 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 from repro_torch.cells import (  # noqa: E402
     cell_apply, init_params, init_state, make_cell, rnn_scan,
 )
-from repro_torch.configs import PAPER_MODELS, get_config  # noqa: E402
+from repro_torch.configs import (  # noqa: E402
+    PAPER_MODELS, get_config, get_reduced,
+)
 from repro_torch.core import (  # noqa: E402
     CSBLinear, CSBMatrix, CSBSpec, admm_finalize, admm_init, admm_penalty,
     admm_update, csb_masks, csb_project, csb_specs_for_params, density,
     padded_csb_from_dense, residual_norm,
 )
-from repro_torch.data import SeqClassifyTask  # noqa: E402
+from repro_torch.data import (  # noqa: E402
+    CharLMTask, SeqClassifyTask, lm_batch_iterator, sharded_batches,
+)
 from repro_torch.dist import Rules, partition_padded, use_rules  # noqa: E402
 from repro_torch.dist.launch import spawn_ranks  # noqa: E402
 from repro_torch.engine import EngineConfig as CycleConfig  # noqa: E402
@@ -264,10 +295,14 @@ from repro_torch.kernels import (  # noqa: E402
 from repro_torch.kernels.csb_sharded import (  # noqa: E402
     csb_matvec_sharded, csb_matvec_sharded_ref,
 )
+from repro_torch.launch import train as launch_train  # noqa: E402
 from repro_torch.models import lm as LM  # noqa: E402
 from repro_torch.models.layers import csb_dense  # noqa: E402
 from repro_torch.obs import metrics as obs_metrics  # noqa: E402
 from repro_torch.obs import trace as obs_trace  # noqa: E402
+from repro_torch.optim import (  # noqa: E402
+    get_optimizer, global_norm, linear_warmup_cosine,
+)
 from repro_torch.serve import (  # noqa: E402
     EngineConfig, PagePool, Request, Router, SlotScheduler, bucket_len,
     derive_draft_params, generate, rnn_serve_frames, serve_continuous,
@@ -277,6 +312,7 @@ from repro_torch.serve import engine as serve_engine  # noqa: E402
 from repro_torch.serve.scheduler import (  # noqa: E402
     fit_cache_len, grow_cache, insert_paged_cache,
 )
+from repro_torch.train import TrainConfig, make_train_step, train  # noqa: E402
 
 SEED = 0
 RATE = 1 - 1 / 13          # the paper's 13x (benchmarks/bench_latency.py)
@@ -387,6 +423,21 @@ SR1_ENGINE = CycleConfig(K=4, L=4, P=4, Q=4)
 LM_FFN = (2048, 16384)     # gemma-2b's w_gate / w_up, (in, out)
 LM_FFN_SPEC = CSBSpec(bm=32, bn=32, prune_rate=0.75)  # train_lm_e2e.py:47
 LM_FFN_BATCH = 4
+# [phase train]: the JAX launcher's defaults (src/repro/launch/train.py)
+TRAIN_STEPS = 8            # (a): the loop's first step sets up; 7 steady
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_LR, TRAIN_WARMUP = 8, 128, 1e-3, 10
+ADMM_LAYERS = 2            # (b): gemma-2b's depth cut; full width
+ADMM_TRAIN_STEPS, ADMM_TRAIN_EVERY = 6, 3
+# tests/test_train.py:76 holds density <= 0.56 at keep 0.5: 0.06 above
+# the keep fraction for the cross-point rounding of rows and columns
+DENSITY_ALLOWANCE = 0.06
+REDUCED_STEPS = 5          # (c): card against CPU, reduced gemma-2b
+# (c)'s bound on |loss(card) - loss(CPU)|: runs that differ only in
+# summation order agree to ~1e-6 over 15 steps (the port against JAX,
+# tests/test_torch_train.py's trajectories); AdamW's near-sign steps at
+# warm-up lrs <= 4e-4 keep a flipped element's move small: 100x that
+REDUCED_LOSS_TOL = 1e-4
+OPT_TIMING_REPS = 5
 
 
 def card_info() -> str:
@@ -2357,7 +2408,8 @@ def decode_profile(label, cfg, params, state, n=5,
             head=head), n, first_design)
 
 
-def step_profile(label, step, n=5, first_design=None) -> dict:
+def step_profile(label, step, n=5, first_design=None,
+                 what="decode-step") -> dict:
     """torch.profiler over ``n`` calls of ``step`` (one decode step at
     the first step's positions): device time by kernel and the device's
     busy share of the wall time. The profiler can miss launches at the
@@ -2415,7 +2467,7 @@ def step_profile(label, step, n=5, first_design=None) -> dict:
     first = ("" if first_design is None else
              f" ({first_design} with the one-launch paged-attention kernel "
              f"of the first design)")
-    print(f"decode-step profile ({label}, {n} steps at the "
+    print(f"{what} profile ({label}, {n} steps at the "
           f"first step's positions, torch.profiler): wall {wall_us:.1f} "
           f"us/step profiled, {plain_us:.1f} us/step unprofiled; device "
           f"busy {busy_us:.1f} us/step ({100 * busy_us / wall_us:.1f}% of "
@@ -3358,11 +3410,330 @@ def sharded_phase(dev, layers, frames, ffn) -> dict:
                       for n, r in ((1, [one]), (2, two), (4, four))}}
 
 
+# ---------------------------------------------------------------------------
+# Training ([phase train]): the JAX launcher's loop at gemma-2b's full
+# width and depth, ADMM-CSB on its FFN then B1, card against CPU
+# ---------------------------------------------------------------------------
+
+def _flat(t) -> list:
+    return list(_leaves(t))
+
+
+def grad_gate(cfg, params, dev) -> float:
+    """Autograd gradients of one batch (step TRAIN_STEPS of the launcher's
+    stream) at the trained weights: every leaf finite, the global norm
+    above 0. Returns the norm."""
+    task = CharLMTask(vocab=min(cfg.vocab, 256), seed=0)
+    batch = {k: torch.as_tensor(v).to(dev) for k, v in
+             task.batch(TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ).items()}
+    leaves = _flat(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    try:
+        loss = LM.forward_loss(params, batch, cfg)
+        grads = torch.autograd.grad(loss, leaves)
+    finally:
+        for p in leaves:
+            p.requires_grad_(False)
+    bad = [i for i, g in enumerate(grads) if not bool(torch.isfinite(g).all())]
+    gn = float(global_norm(list(grads)))
+    if bad or not gn > 0 or not math.isfinite(float(loss.detach())):
+        raise AssertionError(f"gradients at the trained weights: leaves "
+                             f"{bad} not finite, global norm {gn}, loss "
+                             f"{float(loss.detach())}")
+    return gn
+
+
+def optimizer_timing(params, p50_ms) -> dict:
+    """AdamW's update alone on the trained weights (CUDA events, median of
+    OPT_TIMING_REPS), its share of the step, and its bound: each input
+    read once (params, grads, m, v), each output written once (params,
+    m, v), at the card's memory rate."""
+    opt = get_optimizer("adamw")
+    state = opt.init(params)
+    grads = _tree(params, lambda t: torch.full_like(t, 1e-3))
+    ms = median_ms(lambda: opt.update(grads, state, params, 1e-6),
+                   reps=OPT_TIMING_REPS, warm=1)
+    n = sum(t.numel() for t in _flat(params))
+    pbytes = sum(t.numel() * t.element_size() for t in _flat(params))
+    moments = 2 * 4 * n
+    moved = 2 * pbytes + pbytes + 2 * moments
+    bound = moved / HBM_BYTES_PER_S * 1e3
+    del state, grads
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"  optimizer (AdamW, fp32 moments) alone: {ms:.2f} ms, "
+          f"{100 * ms / p50_ms:.1f}% of the step p50; bound {bound:.2f} ms "
+          f"({moved / 1e9:.1f} GB at {HBM_BYTES_PER_S / 1e12:.2f} TB/s: "
+          f"params read and written, grads read, m and v read and "
+          f"written), {bound / ms:.2f} of it")
+    return {"ms": ms, "share": ms / p50_ms, "bound_ms": bound,
+            "bytes": moved}
+
+
+def train_full(dev) -> dict:
+    """(a) gemma-2b at full width and depth, bf16, through the launcher
+    (``repro_torch.launch.train.main``: batch 8, seq 128, AdamW, lr 1e-3
+    with warm-up 10, clip 1.0, remat on) for TRAIN_STEPS steps; then the
+    gradient gate at the trained weights, a profile of steps through
+    ``make_train_step`` and the optimizer timed alone."""
+    cfg = get_config(ARCH)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    reg = obs_metrics.enable()
+    try:
+        params, hist = launch_train.main(["--arch", ARCH, "--steps",
+                                          str(TRAIN_STEPS)])
+        wall_us = reg.histogram("train/step/wall_us").summary()
+    finally:
+        obs_metrics.disable()
+    peak = torch.cuda.max_memory_allocated() - base
+    losses = [h["loss"] for h in hist]
+    if len(hist) != TRAIN_STEPS or not all(map(math.isfinite, losses)):
+        raise AssertionError(f"{ARCH} training: {len(hist)} steps, losses "
+                             f"{losses}")
+    steady = np.asarray([h["dt"] for h in hist[1:]]) * 1e3
+    p50, p99 = (float(np.percentile(steady, q)) for q in (50, 99))
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    n = cfg.param_count()
+    print(f"  (a) {ARCH}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.n_heads} heads over {cfg.n_kv} of {cfg.hd}, {cfg.ffn} d_ff "
+          f"{cfg.d_ff}, vocab {cfg.vocab}, {n:,} parameters, {cfg.dtype}, "
+          f"remat {cfg.remat}; {TRAIN_STEPS} steps of batch {TRAIN_BATCH} x "
+          f"seq {TRAIN_SEQ} through launch.train.main")
+    for h in hist:
+        print(f"      step {h['step']}: loss {h['loss']:.4f}, "
+              f"{h['dt'] * 1e3:.1f} ms")
+    print(f"      peak memory {peak / 1e9:.2f} GB above the "
+          f"{base / 1e9:.2f} GB held before (max_memory_allocated); steps "
+          f"1..{TRAIN_STEPS - 1}: wall p50 {p50:.1f} ms, p99 {p99:.1f} ms, "
+          f"{tokens / p50 * 1e3:.0f} tokens/s at p50; the first step (set-up "
+          f"included) {hist[0]['dt'] * 1e3:.1f} ms; train/step/wall_us "
+          f"histogram {wall_us}")
+    gn = grad_gate(cfg, params, dev)
+    print(f"      gradients at the trained weights: every leaf finite, "
+          f"global norm {gn:.4f}")
+    step_fn, opt = make_train_step(
+        lambda p, b: LM.forward_loss(p, b, cfg), TrainConfig(lr=TRAIN_LR),
+        linear_warmup_cosine(TRAIN_LR, TRAIN_WARMUP, TRAIN_STEPS))
+    state = opt.init(params)
+    task = CharLMTask(vocab=min(cfg.vocab, 256), seed=0)
+    batch = {k: torch.as_tensor(v).to(dev) for k, v in
+             task.batch(0, TRAIN_BATCH, TRAIN_SEQ).items()}
+    step = torch.tensor(0, dtype=torch.int32)
+    prof = step_profile(f"{ARCH}, bf16, one batch", lambda: step_fn(
+        params, state, None, None, batch, step), n=3, what="training-step")
+    del state, step_fn, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    opt_t = optimizer_timing(params, p50)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"losses": losses, "step_ms": [h["dt"] * 1e3 for h in hist],
+            "step_p50_ms": p50, "step_p99_ms": p99,
+            "tokens_per_s": tokens / p50 * 1e3, "peak_gb": peak / 1e9,
+            "grad_norm": gn, "kernels_per_step": prof["kernels_per_step"],
+            "busy_share": prof["busy_share"],
+            "device_ms_per_step": prof["busy_us"] / 1e3,
+            "optimizer_ms": opt_t["ms"], "optimizer_share": opt_t["share"],
+            "optimizer_bound_ms": opt_t["bound_ms"]}
+
+
+def _ffn_specs(params, spec) -> dict:
+    specs = {k: None for k in params if k != "layers"}
+    specs["layers"] = [
+        {"norm1": None, "norm2": None,
+         "mixer": {k: None for k in lp["mixer"]},
+         "ffn": {k: spec for k in ("w_gate", "w_up", "w_down")}}
+        for lp in params["layers"]]
+    return specs
+
+
+def train_admm(dev) -> dict:
+    """(b) ADMM-CSB on gemma-2b's FFN at full width, depth cut to
+    ADMM_LAYERS: ``train`` with the penalty, ``admm_update`` every
+    ADMM_TRAIN_EVERY steps and ``admm_finalize``; then each finalized
+    matrix frozen (``CSBLinear(transposed=True)``) and one batch's FFN
+    inputs through ``csb_dense`` into B1, against the masked-dense
+    product."""
+    cfg = dataclasses.replace(get_config(ARCH), n_layers=ADMM_LAYERS)
+    params = LM.init_params(cfg, torch.Generator(dev).manual_seed(SEED), dev)
+    specs = _ffn_specs(params, LM_FFN_SPEC)
+    task = CharLMTask(vocab=min(cfg.vocab, 256), seed=0)
+    batches = sharded_batches(lm_batch_iterator(task, TRAIN_BATCH,
+                                                TRAIN_SEQ), device=dev)
+    tcfg = TrainConfig(lr=TRAIN_LR, steps=ADMM_TRAIN_STEPS,
+                       admm_every=ADMM_TRAIN_EVERY, log_every=10 ** 9)
+    t0 = time.perf_counter()
+    params, hist = train(lambda p, b: LM.forward_loss(p, b, cfg), params,
+                         batches, tcfg, lr_schedule=linear_warmup_cosine(
+                             TRAIN_LR, TRAIN_WARMUP, ADMM_TRAIN_STEPS),
+                         csb_specs=specs, log=lambda *_: None)
+    secs = time.perf_counter() - t0
+    losses = [h["loss"] for h in hist]
+    bound = 1 - LM_FFN_SPEC.prune_rate + DENSITY_ALLOWANCE
+    dens = {f"{i}.{k}": float(density(lp["ffn"][k]))
+            for i, lp in enumerate(params["layers"])
+            for k in ("w_gate", "w_up", "w_down")}
+    if len(hist) != ADMM_TRAIN_STEPS or not all(map(math.isfinite, losses)) \
+            or max(dens.values()) > bound:
+        raise AssertionError(f"ADMM on {ARCH}'s FFN: losses {losses}, "
+                             f"densities {dens} (bound {bound})")
+    batch = {k: torch.as_tensor(v).to(dev) for k, v in
+             task.batch(ADMM_TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ).items()}
+    tol = TOL[torch.bfloat16]
+    err, start = 0.0, csb_mvm.LAUNCHES
+    with torch.no_grad():
+        x = LM.embed_tokens(params, batch["tokens"], cfg)
+        for i, lp in enumerate(params["layers"]):
+            x = x + LM.L.attn_apply(lp["mixer"],
+                                    LM.L.rmsnorm(x, lp["norm1"]), cfg)
+            h = LM.L.rmsnorm(x, lp["norm2"])
+            ins = {"w_gate": h, "w_up": h}
+            outs = {}
+            for k in ("w_gate", "w_up", "w_down"):
+                w = lp["ffn"][k]
+                if k == "w_down":
+                    ins[k] = F.gelu(outs["w_gate"], approximate="tanh") \
+                        * outs["w_up"]
+                frozen = CSBLinear(w, LM_FFN_SPEC, mode="masked",
+                                   transposed=True).freeze()
+                if not torch.equal(densify(frozen._packed), w.T):
+                    raise AssertionError(f"layer {i} {k}: the packing does "
+                                         f"not hold the finalized weight")
+                y = csb_dense(ins[k], frozen)
+                ref = ins[k].float() @ w.float()
+                e = float((y.float() - ref).abs().max())
+                if not torch.allclose(y.float(), ref, rtol=tol, atol=tol):
+                    raise AssertionError(f"layer {i} {k}: B1 {e:.3e} from "
+                                         f"the masked-dense product (tol "
+                                         f"{tol})")
+                err = max(err, e)
+                outs[k] = y
+            x = x + outs["w_down"]
+    launches = csb_mvm.LAUNCHES - start
+    if launches != 3 * ADMM_LAYERS:
+        raise AssertionError(f"B1 launched {launches} times for "
+                             f"{3 * ADMM_LAYERS} FFN products")
+    print(f"  (b) ADMM-CSB on {ARCH}'s FFN (w_gate, w_up, w_down) at "
+          f"{LM_FFN_SPEC}, full width, depth cut to {ADMM_LAYERS} layers: "
+          f"{ADMM_TRAIN_STEPS} steps, admm_update every {ADMM_TRAIN_EVERY}, "
+          f"finalized ({secs:.1f} s); losses {[round(v, 4) for v in losses]}")
+    print(f"      densities {dens} (bound {bound:.2f}: the keep fraction "
+          f"{1 - LM_FFN_SPEC.prune_rate:.2f} + {DENSITY_ALLOWANCE}, "
+          f"tests/test_train.py:76's cross-point allowance)")
+    print(f"      one batch ({TRAIN_BATCH} x {TRAIN_SEQ} tokens, bf16) "
+          f"through csb_dense: B1 launched {launches} times, max abs err "
+          f"{err:.3e} from the masked-dense product (tol {tol}, phase 3's "
+          f"bf16 bound)")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"losses": losses, "densities": dens, "density_bound": bound,
+            "b1_launches": launches, "max_abs_err": err}
+
+
+def _copy(params, dev) -> dict:
+    return _tree(params, lambda t: t.detach().to(dev).clone())
+
+
+def _reduced_run(cfg, params, dev, steps, ckpt_dir=None):
+    task = CharLMTask(vocab=min(cfg.vocab, 256), seed=0)
+    tcfg = TrainConfig(lr=TRAIN_LR, steps=steps, ckpt_dir=ckpt_dir,
+                       ckpt_every=2, log_every=10 ** 9)
+    return train(lambda p, b: LM.forward_loss(p, b, cfg),
+                 _copy(params, dev),
+                 lm_batch_iterator(task, TRAIN_BATCH, TRAIN_SEQ), tcfg,
+                 log=lambda *_: None)
+
+
+def resume_gate(cfg, params, dev) -> str:
+    """4 steps with checkpoints every 2, then a fresh ``train`` on that
+    directory to step 6: its params equal an uninterrupted 6-step run's.
+    Bit-equal under ``torch.use_deterministic_algorithms(True)``."""
+    torch.use_deterministic_algorithms(True)
+    try:
+        with tempfile.TemporaryDirectory(prefix="ckpt-") as ck:
+            ref, _ = _reduced_run(cfg, params, dev, 6)
+            _reduced_run(cfg, params, dev, 4, ck)
+            got, hist = _reduced_run(cfg, params, dev, 6, ck)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    diff = max(float((a - b).abs().max())
+               for a, b in zip(_flat(ref), _flat(got)))
+    if [h["step"] for h in hist] != [4, 5] or diff != 0.0:
+        raise AssertionError(f"resume: steps {[h['step'] for h in hist]}, "
+                             f"params {diff:.3e} from the uninterrupted run")
+    return "bit-equal"
+
+
+def train_reduced(dev) -> dict:
+    """(c) ``get_reduced(gemma-2b)`` (fp32) trained REDUCED_STEPS steps on
+    the card and on the CPU from the same weights (made on the CPU from a
+    generator seeded 0 and copied) on the same numpy batches; then the
+    resume gate on the card."""
+    cfg = get_reduced(ARCH)
+    params = LM.init_params(cfg, torch.Generator().manual_seed(SEED), "cpu")
+    runs = {d: _reduced_run(cfg, params, d, REDUCED_STEPS)[1]
+            for d in ("cpu", dev)}
+    diffs = [abs(a["loss"] - b["loss"]) for a, b in zip(runs["cpu"],
+                                                        runs[dev])]
+    if len(diffs) != REDUCED_STEPS or max(diffs) > REDUCED_LOSS_TOL:
+        raise AssertionError(f"reduced {ARCH}: card vs CPU losses differ "
+                             f"by {diffs} (bound {REDUCED_LOSS_TOL})")
+    resumed = resume_gate(cfg, params, dev)
+    print(f"  (c) reduced {ARCH} (fp32, {cfg.param_count():,} params), "
+          f"{REDUCED_STEPS} steps on the card and on the CPU: losses "
+          f"{[round(h['loss'], 6) for h in runs[dev]]}, largest difference "
+          f"{max(diffs):.3e} (bound {REDUCED_LOSS_TOL}); resume (4 steps "
+          f"with checkpoints every 2, a fresh train to 6) against 6 "
+          f"uninterrupted steps: {resumed} (deterministic algorithms, "
+          f"CUBLAS_WORKSPACE_CONFIG="
+          f"{os.environ.get('CUBLAS_WORKSPACE_CONFIG')})")
+    return {"loss_diffs": diffs, "resume": resumed}
+
+
+def train_phase(dev) -> dict:
+    """Training on the card: (a) gemma-2b at full width and depth through
+    the launcher, (b) ADMM-CSB on its FFN then B1, (c) card against CPU
+    at the reduced size and the resume gate. B1's launch count is read
+    around (b)'s products; (a) and (c) launch no kernel of the port."""
+    print(f"  allow_tf32: matmul {torch.backends.cuda.matmul.allow_tf32}, "
+          f"cudnn {torch.backends.cudnn.allow_tf32}")
+    start = (csb_mvm.LAUNCHES, paged_attn.LAUNCHES, csb_sharded.LAUNCHES)
+    t = [time.perf_counter()]
+    full = train_full(dev)
+    t.append(time.perf_counter())
+    after_a = (csb_mvm.LAUNCHES, paged_attn.LAUNCHES, csb_sharded.LAUNCHES)
+    admm = train_admm(dev)
+    t.append(time.perf_counter())
+    red = train_reduced(dev)
+    t.append(time.perf_counter())
+    end = (csb_mvm.LAUNCHES, paged_attn.LAUNCHES, csb_sharded.LAUNCHES)
+    if after_a != start or end != (after_a[0] + admm["b1_launches"],
+                                   *after_a[1:]):
+        raise AssertionError(f"kernel launches (B1, B2, B3) in the train "
+                             f"phase: {start} -> {after_a} -> {end}")
+    secs = [b - a for a, b in zip(t, t[1:])]
+    print(f"  train phase: (a) {secs[0]:.1f} s, (b) {secs[1]:.1f} s, (c) "
+          f"{secs[2]:.1f} s; B1 launched {admm['b1_launches']} times, B2 "
+          f"and B3 none")
+    out = {"full": full, "admm": admm, "reduced": red, "part_s": secs}
+    print(json.dumps({"train": out}))
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA device; none is available",
               file=sys.stderr)
         return 1
+    # before cuBLAS starts: [phase train]'s resume gate runs under
+    # torch.use_deterministic_algorithms, which needs a fixed workspace
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
@@ -3413,10 +3784,14 @@ def main() -> int:
     fe = phase("frontends", frontends_phase, dev)
     pp = phase("paper", paper_phase, dev, frames, sl, ffn)
     sh = phase("sharded", sharded_phase, dev, layers, frames, ffn)
+    tr = phase("train", train_phase, dev)
     print(f"[total {time.perf_counter() - t_start:.1f} s]")
     print(json.dumps({"kernels": [{
-        **KERNEL, "launches": sl["launches"] + pp["launches"],
+        **KERNEL, "launches": (sl["launches"] + pp["launches"]
+                               + tr["admm"]["b1_launches"]),
         "max_abs_err": max(max_err, pp["lm_ffn"]["max_abs_err"]),
+        "train_launches": tr["admm"]["b1_launches"],
+        "train_max_abs_err": tr["admm"]["max_abs_err"],
         "ms": tm["ms"], "plain_ms": tm["plain_ms"],
         "bound_ms": tm["bound_ms"], "bound_by": tm["bound_by"],
         "library_ms": tm["library_ms"], "device_ms": tm["device_ms"],

@@ -8,6 +8,8 @@ frame-by-frame serving (``serve.rnn_serve_frames``). Slice 2 adds decoder
 LM serving with paged continuous batching (``configs``, ``models``,
 ``serve.serve_continuous``) through the paged-attention kernel in CUDA;
 later slices add ``generate``, the prefix cache, speculative decoding,
-and the MLA mixer and MoE FFN on every one of those paths.
+the MLA mixer and MoE FFN on every one of those paths, the paper's
+pipeline, sharded CSB serving, and training on one device (``optim``,
+``train``, ``launch.train``).
 Entry points run on the card unless the caller passes ``device="cpu"``.
 """

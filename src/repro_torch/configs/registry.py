@@ -1,10 +1,11 @@
 """Architecture registry: ``--arch <id>`` resolution.
 
 A copy of the parts of ``repro.configs.registry`` that need no JAX:
-``get_config``, ``get_reduced``, ``ARCH_IDS`` and ``cell_is_runnable``.
-``sharding_policy`` and ``train_microbatches`` need the multi-device
-rules (``dist.rules``) and wait for the port's multi-GPU and training
-slices; ``shape_overrides`` and ``all_cells`` come with them.
+``get_config``, ``get_reduced``, ``ARCH_IDS``, ``cell_is_runnable`` and
+``train_microbatches``. ``sharding_policy`` needs the multi-device
+rules (``dist.rules``) and waits for ROADMAP item 20;
+``shape_overrides`` and ``all_cells`` come with the launch tooling
+(item 23).
 """
 from __future__ import annotations
 
@@ -43,3 +44,14 @@ def cell_is_runnable(arch: str, shape: str) -> bool:
     if shape == "long_500k":
         return cfg.mixer in SUBQUADRATIC
     return True
+
+
+def train_microbatches(arch: str) -> int:
+    """Grad-accumulation depth (capped to per-dp-shard batch by the
+    launcher). Keeps saved activations within device memory."""
+    cfg = get_config(arch)
+    if cfg.param_count() > 1e11:
+        return 16
+    if cfg.param_count() > 1e10:
+        return 8
+    return 4

@@ -8,7 +8,10 @@ the keys ``vals``, ``row_idx``, ``col_idx``, ``m``, ``n``, ``shape``,
 ``grid`` and ``block``. ``lm_params_from_numpy`` does the same for a
 decoder LM's parameter tree, and ``sharded_csb_from_numpy`` for a
 ``ShardedCSB`` (the same mapping plus ``row_map``). bf16 arrays (numpy's
-``bfloat16`` extension type) keep their bits. This module imports no JAX.
+``bfloat16`` extension type) keep their bits. ``opt_state_from_numpy``
+carries an optimizer's state across (sgd, adamw, adafactor), and
+``params_to_numpy`` / ``opt_state_to_numpy`` go the other way, into
+JAX's stacked layout. This module imports no JAX.
 """
 from __future__ import annotations
 
@@ -17,6 +20,7 @@ from collections.abc import Mapping
 import numpy as np
 import torch
 
+from repro_torch import _tree
 from repro_torch._device import resolve_device
 from repro_torch.core.csb_format import PaddedCSB, ShardedCSB
 
@@ -65,9 +69,9 @@ def sharded_csb_from_numpy(leaves: Mapping, device=None) -> ShardedCSB:
                       for rows in leaves["row_map"]))
 
 
-def _tree(t, dev):
+def _tensors(t, dev):
     if isinstance(t, Mapping):
-        return {k: _tree(v, dev) for k, v in t.items()}
+        return {k: _tensors(v, dev) for k, v in t.items()}
     return _tensor(t, dev)
 
 
@@ -78,7 +82,7 @@ def lm_params_from_numpy(params: Mapping, device=None) -> dict:
     weights on a leading L axis under ``"layers"``; the port keeps a list
     of per-layer dicts, so each stacked leaf is cut along that axis."""
     dev = resolve_device(device)
-    stacked = _tree(params["layers"], dev)
+    stacked = _tensors(params["layers"], dev)
 
     def layer(t, i):
         if isinstance(t, dict):
@@ -86,7 +90,7 @@ def lm_params_from_numpy(params: Mapping, device=None) -> dict:
         return t[i].clone()      # its own storage, not a view of the stack
 
     n_layers = next(iter(_leaves(stacked))).shape[0]
-    out = {k: _tree(v, dev) for k, v in params.items() if k != "layers"}
+    out = {k: _tensors(v, dev) for k, v in params.items() if k != "layers"}
     out["layers"] = [layer(stacked, i) for i in range(n_layers)]
     return out
 
@@ -97,3 +101,59 @@ def _leaves(t):
             yield from _leaves(v)
         else:
             yield v
+
+
+def _jax_leaves(t):
+    """The leaves of a JAX tree held as numpy (nested mappings; an
+    ``OptState`` as anything with ``inner`` and ``step``) in JAX's
+    flatten order: keys sorted, ``inner`` before ``step``."""
+    if t is None:
+        return
+    if hasattr(t, "inner") and hasattr(t, "step"):
+        yield from _jax_leaves(t.inner)
+        yield t.step
+    elif isinstance(t, Mapping):
+        for k in sorted(t):
+            yield from _jax_leaves(t[k])
+    else:
+        yield t
+
+
+def opt_state_from_numpy(state, like, device=None):
+    """The JAX package's ``OptState`` of sgd, adamw or adafactor, its
+    leaves as numpy (``jax.tree.map(np.asarray, state)``) -> the port's,
+    in the structure of ``like`` (the port's ``opt.init(params)`` of the
+    same optimizer), on ``device`` (``None`` means the card): the
+    moments' stacked layers cut into the port's per-layer list,
+    Adafactor's state kept stacked as the port keeps it."""
+    dev = resolve_device(device)
+    return _tree.unstack(like, [_tensor(a, dev)
+                                for a in _jax_leaves(state)])
+
+
+def _numpy(t: torch.Tensor) -> np.ndarray:
+    t = t.detach()
+    if t.dtype == torch.bfloat16:
+        t = t.to(torch.float32)
+    return t.cpu().numpy()
+
+
+def _jax_layout(tree) -> dict:
+    return _tree.jax_structure(
+        tree, lambda ps, stacked: np.stack([_numpy(p) for p in ps])
+        if stacked else _numpy(ps[0]))
+
+
+def params_to_numpy(params) -> dict:
+    """The port's parameter tree -> JAX's layout as numpy: each
+    ``"layers"`` weight stacked on a leading L axis. bf16 comes out as
+    its exact fp32 upcast (numpy has no bf16 without JAX's ``ml_dtypes``):
+    ``jnp.asarray(a, jnp.bfloat16)`` gives JAX's array back bit for bit."""
+    return _jax_layout(params)
+
+
+def opt_state_to_numpy(state) -> dict:
+    """The port's ``OptState`` -> {"inner": JAX's layout as numpy, "step":
+    int32 0-d}: ``repro.optim.OptState(**)`` of it, leaves as jnp arrays,
+    is JAX's state."""
+    return {"inner": _jax_layout(state.inner), "step": _numpy(state.step)}

@@ -1,10 +1,12 @@
-"""repro_torch.data — the deterministic synthetic tasks.
+"""repro_torch.data — the deterministic synthetic tasks and the input
+pipeline.
 
-Copies of ``repro.data.synthetic`` (numpy): per-(seed, step) batches, the
-same in both packages. The JAX package's ``Prefetcher`` and
-``sharded_batches`` (``repro.data.pipeline``) wait for the port's
-training slice.
+``synthetic``: copies of ``repro.data.synthetic`` (numpy), per-(seed,
+step) batches, the same in both packages. ``pipeline``: ``Prefetcher``
+(copied) and ``sharded_batches``, which puts each batch on the device
+(one device; a mesh waits for ROADMAP item 20).
 """
+from .pipeline import Prefetcher, sharded_batches
 from .synthetic import (
     AddingTask,
     CharLMTask,
@@ -15,5 +17,5 @@ from .synthetic import (
 
 __all__ = [
     "CharLMTask", "CopyTask", "AddingTask", "SeqClassifyTask",
-    "lm_batch_iterator",
+    "lm_batch_iterator", "Prefetcher", "sharded_batches",
 ]

@@ -15,9 +15,11 @@ CSB path needs it (ROADMAP item 21).
                     ``Replicate()``) of every leaf of a parameter tree.
 ``launch``        — ``spawn_ranks``: one process per rank of a mesh (the
                     port runs SPMD), joined into a process group.
+``compress``      — int8 error-feedback gradient compression (the DP
+                    all-reduce's wire stage; ``train.loop`` runs it).
 
-JAX's ``shard``/``fit_spec``, the dense ``param_specs``/``activation_rules``
-and gradient compression wait for ROADMAP items 20 and 22.
+JAX's ``shard``/``fit_spec`` and the dense ``param_specs``/
+``activation_rules`` wait for ROADMAP items 20 and 22.
 """
 from .api import Rules, current_rules, use_rules
 from .csb_partition import (

@@ -1,4 +1,4 @@
-"""Layer primitives of the decoder LM, the subset the serve paths run.
+"""Layer primitives of the decoder LM.
 
 A port of ``repro.models.layers``: dense projections, RMSNorm, RoPE,
 blockwise (flash-style) causal attention for prefill, the GQA attention
@@ -665,12 +665,15 @@ def _top_k(probs: torch.Tensor, k: int):
 def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Batched ``a @ b`` with JAX's ``preferred_element_type=F32``: the
     products summed in fp32 and returned in fp32. Low-precision operands
-    go to fp32 first on the CPU (bf16 products are exact there); on the
-    card cuBLAS takes them as they are and writes fp32, so a decode step
-    reads each expert weight once, in its own dtype."""
+    go to fp32 first on the CPU (bf16 products are exact there); off the
+    CPU cuBLAS takes them as they are and writes fp32, so a decode step
+    reads each expert weight once, in its own dtype. ``bmm``'s
+    ``out_dtype`` form has no derivative, so where autograd records the
+    product (training) the operands go to fp32 first there too."""
     if a.dtype == F32 and b.dtype == F32:
         return torch.matmul(a, b)
-    if a.is_cuda:
+    grad = torch.is_grad_enabled() and (a.requires_grad or b.requires_grad)
+    if a.device.type != "cpu" and not grad:
         return torch.bmm(a, b, out_dtype=F32)
     return torch.matmul(a.to(F32), b.to(F32))
 

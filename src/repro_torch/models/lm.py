@@ -1,9 +1,11 @@
-"""Decoder LM: embed -> layers -> norm -> head, the serve subset.
+"""Decoder LM: embed -> layers -> norm -> head.
 
-A port of the parts of ``repro.models.lm`` that serving runs: parameter
-init, embedding and head, prompt prefill, the partial prefill of a
-prompt suffix against a cached prefix, and the decode step through the
-contiguous cache and through the paged KV pool. The JAX package stacks
+A port of ``repro.models.lm`` but its abstract (shape-only) trees:
+parameter init, embedding and head, the training forward (``layer_apply``,
+``backbone``, ``lm_loss``, ``forward_loss``; autograd gives the
+gradients), prompt prefill, the partial prefill of a prompt suffix
+against a cached prefix, and the decode step through the contiguous
+cache and through the paged KV pool. The JAX package stacks
 every layer's weights on a leading L axis and scans them; here
 ``params["layers"]`` is a list of per-layer dicts and the layers run in
 a Python loop. The caches stay stacked like JAX's, so that one layer's
@@ -29,6 +31,8 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch._device import resolve_device
 
@@ -155,6 +159,88 @@ def _logits(hidden, params, cfg: ModelConfig, head, mask: bool = True):
                              torch.tensor(-1e30, dtype=F32,
                                           device=logits.device))
     return logits
+
+
+# ---------------------------------------------------------------------------
+# training forward
+# ---------------------------------------------------------------------------
+
+def layer_apply(lp, x, cfg: ModelConfig, window=None):
+    """One layer over the whole sequence x (B, S, d), as training runs
+    it: x + mixer(rmsnorm(x)), then the residual FFN."""
+    h = L.rmsnorm(x, lp["norm1"])
+    if cfg.mixer == "attn":
+        mix = L.attn_apply(lp["mixer"], h, cfg, window=window)
+    elif cfg.mixer == "mla":
+        mix = L.mla_apply(lp["mixer"], h, cfg, window=window)
+    elif cfg.mixer == "ssd":
+        mix = L.ssd_block_apply(lp["mixer"], h, cfg)
+    elif cfg.mixer == "hybrid":
+        mix = L.hybrid_apply(lp["mixer"], h, cfg, window=window)
+    else:  # pragma: no cover
+        raise ValueError(cfg.mixer)
+    return _ffn(lp, x + mix, cfg)
+
+
+def backbone(params, x, cfg: ModelConfig, window=None):
+    """x: (B, S, d) embeddings -> final hidden states. With ``cfg.remat``
+    each layer is checkpointed (``jax.checkpoint`` on JAX's scan body):
+    backward keeps only each layer's input and runs the layer again."""
+    for lp in params["layers"]:
+        if cfg.remat:
+            x = checkpoint(layer_apply, lp, x, cfg, window,
+                           use_reentrant=False)
+        else:
+            x = layer_apply(lp, x, cfg, window)
+    return L.rmsnorm(x, params["final_norm"])
+
+
+def lm_loss(params, hidden, labels, cfg: ModelConfig):
+    """Chunked CE over the sequence; labels == -1 are masked.
+
+    hidden: (B, S, d); labels: (B, S) or (B, S, K) for codebooks. The
+    sequence is cut into chunks of ``cfg.logit_chunk`` (the last padded
+    with -1 labels), each chunk's logits made in fp32 against the fp32
+    head, the padded-vocab columns set to -1e30; the mean is over the
+    valid labels."""
+    b, s, d = hidden.shape
+    ck = min(cfg.logit_chunk, s)
+    sp = -(-s // ck) * ck
+    labels = torch.as_tensor(labels, device=hidden.device).long()
+    hp = F.pad(hidden, (0, 0, 0, sp - s))
+    pad = [0, 0] * (labels.ndim - 2) + [0, sp - s]
+    lp = F.pad(labels, pad, value=-1)
+    w = head_weight(params, cfg).to(F32)
+    loss_sum = torch.zeros((), dtype=F32, device=hidden.device)
+    count = torch.zeros((), dtype=torch.int64, device=hidden.device)
+    for i in range(sp // ck):
+        hc = hp[:, i * ck:(i + 1) * ck]
+        lc = lp[:, i * ck:(i + 1) * ck]
+        logits = hc.to(F32) @ w
+        if cfg.n_codebooks:
+            logits = logits.reshape(b, ck, cfg.n_codebooks, cfg.vocab)
+        if logits.shape[-1] != cfg.vocab:   # mask padded vocab rows
+            idx = torch.arange(logits.shape[-1], device=logits.device)
+            logits = torch.where(idx < cfg.vocab, logits,
+                                 torch.tensor(-1e30, dtype=F32,
+                                              device=logits.device))
+        lse = torch.logsumexp(logits, dim=-1)
+        valid = lc >= 0
+        picked = torch.gather(logits, -1,
+                              torch.clamp(lc, min=0)[..., None])[..., 0]
+        nll = torch.where(valid, lse - picked, torch.zeros((), dtype=F32,
+                                                           device=lse.device))
+        loss_sum = loss_sum + nll.sum()
+        count = count + valid.sum()
+    return loss_sum / torch.clamp(count, min=1)
+
+
+def forward_loss(params, batch, cfg: ModelConfig, window=None):
+    """The mean next-token loss of a batch {tokens, labels[, img_embeds]}
+    (an image-token model's image positions carry -1 labels)."""
+    x, labels = assemble_inputs(params, batch, cfg)
+    hidden = backbone(params, x, cfg, window=window)
+    return lm_loss(params, hidden, labels, cfg)
 
 
 # ---------------------------------------------------------------------------

@@ -502,7 +502,20 @@ def test_spawn_ranks_fails_with_the_failed_rank_traceback():
 
 
 def test_spawn_ranks_stops_a_rank_past_its_deadline():
+    """The deadline starts once both ranks have joined the group (booting
+    has its own limit), so rank 0, which returns at once, is done by then
+    however slowly the ranks booted, and only the hung rank 1 is named."""
     with pytest.raises(TimeoutError, match=r"ranks \[1\] of 2 still running"):
+        spawn_ranks(_rank_hangs, (1, 2), device="cpu", timeout_s=5)
+
+
+def test_spawn_ranks_names_the_ranks_still_booting(monkeypatch):
+    """No rank joins its group within a boot limit of 10 ms: the call
+    raises, names both ranks, and stops them."""
+    from repro_torch.dist import launch
+    monkeypatch.setattr(launch, "BOOT_S", 0.01)
+    with pytest.raises(TimeoutError, match=r"ranks \[0, 1\] of 2 still "
+                                           r"booting after 0 s"):
         spawn_ranks(_rank_hangs, (1, 2), device="cpu", timeout_s=5)
 
 

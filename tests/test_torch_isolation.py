@@ -67,6 +67,25 @@ def test_sharded_modules_alone_load_no_jax_or_repro(module):
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
 
 
+@pytest.mark.parametrize("module", ["repro_torch.optim",
+                                    "repro_torch.train",
+                                    "repro_torch.launch",
+                                    "repro_torch.launch.train",
+                                    "repro_torch.dist.compress",
+                                    "repro_torch.data.pipeline"])
+def test_training_modules_alone_load_no_jax_repro_or_triton(module):
+    """The training path's modules, imported first and alone in a fresh
+    process, load no JAX, nothing of ``repro`` and no ``triton``."""
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    probe = (f"import json, sys, {module}; print(json.dumps(sorted(k for k "
+             f"in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', "
+             f"'repro', 'triton'))))")
+    out = subprocess.run([sys.executable, "-c", probe], capture_output=True,
+                         text=True, env=env, cwd=ROOT, timeout=240)
+    assert out.returncode == 0, out.stderr
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
 def _loaded_modules(mesh):
     """Run in each spawned rank: the JAX and ``repro`` modules loaded
     after the sharded serving path is imported."""
@@ -86,7 +105,9 @@ def test_spawned_ranks_load_no_jax_or_repro():
     str(p.relative_to(ROOT)) for p in [*PKG.rglob("*.py"),
                                        ROOT / "chip_smoke.py",
                                        ROOT / "examples" /
-                                       "quickstart_torch.py"]))
+                                       "quickstart_torch.py",
+                                       ROOT / "examples" /
+                                       "train_lm_e2e_torch.py"]))
 def test_sources_import_no_jax_or_repro(path):
     src = (ROOT / path).read_text()
     bad = re.findall(r"^\s*(?:import\s+(?:jax|repro)\b|from\s+(?:jax|repro)"
