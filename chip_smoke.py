@@ -192,30 +192,38 @@ Phases, each of which raises (and the script exits nonzero) on failure:
    before (a) and read after (c).
 14. Kernel B3 (``[phase sharded]``), after the paper phase: the CSB
    matvec with W's block-rows split over a mesh's "model" axis
-   (``kernels.csb_sharded``: B1 on each rank's shard, chunked
-   ``all_gather``, one row unpermute). Ranks are processes of their own
-   (``dist.launch.spawn_ranks``, spawn start method, the kernels built
-   above and only loaded there), all on this card: one rank is an NCCL
-   group, several ranks exchange over gloo (NCCL refuses two ranks on
-   one card). (a) On SR1's 18 matrices (batch 1) and gemma-2b's FFN
-   projection (batch 4, x fp32 and bf16) at R = 1, 2 and 4 ranks and
-   overlap 1, 2, 3: every rank's y bit-equal to B1 on the unsharded
-   matrix and within ``TOL`` of B3's plain version (B1's plain version on
-   the shard, the same gathers); the plans' imbalance and block-rows per
-   rank and B1's launches per call printed. (b) On two ranks of a
-   (1, 2) ("data", "model") mesh, SR1 at full width through
+   (``kernels/csrc/csb_sharded.cu``: one launch a call on each rank, B1's
+   block-row body over the rank's live block-rows, each output stored at
+   its global column into every rank's output: through CUDA IPC and
+   stream memory operations where there are peers). Ranks are processes
+   of their own (``dist.launch.spawn_ranks``, spawn start method, the
+   kernels built above and only loaded there), all on this card: one
+   rank is an NCCL group; several ranks join a gloo group (NCCL refuses
+   two ranks on one card), which B3 uses only to swap IPC handles once.
+   (a) On SR1's 18 matrices (batch 1) and gemma-2b's FFN projection
+   (batch 4, x fp32 and bf16) at R = 1, 2 and 4 ranks and overlap 1, 2,
+   3: every rank's y bit-equal to B1 on the unsharded matrix and within
+   ``TOL`` of B3's plain version (B1's plain version on the shard, the
+   chunked gathers), one B3 launch a call and no B1 launch; each rank's
+   rows from the kernel alone (``csb_sharded_rows``) within ``TOL`` of
+   their plain version; at R = 2 and 4, 200 calls back to back with a new
+   x each, every output bit-equal to B1's (a slot overwritten before a
+   peer copied it out would show); the plans' imbalance and block-rows
+   per rank and the exchange route printed. (b) On two ranks of a (1, 2)
+   ("data", "model") mesh, SR1 at full width through
    ``rnn_serve_frames(mesh=...)`` for 200 frames at batch 1: outputs and
    final states bit-equal to the unsharded run through B1 and within
    1e-4 of the masked-dense model; us_per_frame and p99 printed as two
-   ranks sharing one card over gloo, not a multi-GPU number. (c) On the
-   same ranks ``csb_dense`` at gemma-2b's FFN under ``use_rules``, equal
-   to its unsharded run. B3's and B1's launch counts are set to 0 on each
-   rank before (b) and read after (c). (d) On the NCCL rank, B3 timed on
-   SR1's 18 MVMs and on the FFN: events (median of 50) beside B1 on the
-   whole matrix and B3's plain version, the profiler's device time and
-   the all-gather's share of it, CUDA-graph replay, and the bound (B1's
-   live bytes plus the gathered rows). A rank that fails or outlives its
-   deadline fails the phase.
+   ranks sharing one card, not a multi-GPU number. (c) On the same ranks
+   ``csb_dense`` at gemma-2b's FFN under ``use_rules``, equal to its
+   unsharded run. B3's and B1's launch counts are set to 0 on each rank
+   before (b) and read after (c): B3 once a call, B1 never. Then B3's
+   CUDA events per call at R = 2 on SR1's 18 MVMs. (d) On the NCCL rank,
+   B3 timed on SR1's 18 MVMs and on the FFN: events (median of 50)
+   beside B1 on the whole matrix and B3's plain version, the profiler's
+   device time (one device kernel a call, or it raises) beside B1's,
+   CUDA-graph replay, and the bound (the live bytes). A rank that fails
+   or outlives its deadline fails the phase.
 
 15. Training (``[phase train]``), last. TF32 is off (printed). (a)
    gemma-2b at full width and depth (18 layers, d_model 2048, 8 heads
@@ -265,7 +273,6 @@ from pathlib import Path
 
 import numpy as np
 import torch
-import torch.distributed as dist
 import torch.nn.functional as F
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
@@ -286,6 +293,7 @@ from repro_torch.data import (  # noqa: E402
 )
 from repro_torch.dist import Rules, partition_padded, use_rules  # noqa: E402
 from repro_torch.dist.launch import spawn_ranks  # noqa: E402
+from repro_torch.dist.symm import exchange_route  # noqa: E402
 from repro_torch.engine import EngineConfig as CycleConfig  # noqa: E402
 from repro_torch.engine import simulate_matrix  # noqa: E402
 from repro_torch.kernels import (  # noqa: E402
@@ -293,8 +301,9 @@ from repro_torch.kernels import (  # noqa: E402
     pad_to_grid, paged_attn, paged_attn_decode, paged_attn_ref,
 )
 from repro_torch.kernels.csb_sharded import (  # noqa: E402
-    csb_matvec_sharded, csb_matvec_sharded_ref,
+    csb_matvec_sharded, csb_matvec_sharded_ref, csb_sharded_rows,
 )
+from repro_torch.kernels.ref import csb_sharded_rows_ref  # noqa: E402
 from repro_torch.launch import train as launch_train  # noqa: E402
 from repro_torch.models import lm as LM  # noqa: E402
 from repro_torch.models.layers import csb_dense  # noqa: E402
@@ -336,12 +345,13 @@ KERNEL = {
 }
 SHARDED_KERNEL = {
     "name": "csb_matvec_sharded",
-    "route": "B1 + all_gather",
-    "source": "src/repro_torch/kernels/csb_sharded.py",
+    "route": "cuda",
+    "source": "src/repro_torch/kernels/csrc/csb_sharded.cu",
     "replaces": "src/repro/kernels/csb_sharded.py:155",
     "library_ms": None,      # no single PyTorch call computes it
 }
 SHARD_OVERLAPS = (1, 2, 3)
+SHARD_LOOP = 200           # B3 calls back to back at R = 2 and 4 (slot reuse)
 SHARD_TIMEOUT_S = 300      # a spawned group's deadline
 PAGED_KERNEL = {
     "name": "paged_attn",
@@ -440,11 +450,16 @@ REDUCED_LOSS_TOL = 1e-4
 OPT_TIMING_REPS = 5
 
 
-def card_info() -> str:
-    line = subprocess.run(
+def card_line() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+
+
+def card_info() -> str:
+    line = card_line()
     print(line)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"device {torch.cuda.get_device_name(0)}")
@@ -702,7 +717,7 @@ def _annotation(ev) -> bool:
 
 
 def device_kernel_ms(fn, names=("csb_mvm_kernel",), reps=20,
-                     once_per_call=False, per_call=None):
+                     once_per_call=False, per_call=None, launch_counts=None):
     """Device time per call of fn of every kernel whose name contains one
     of ``names`` (every kernel if ``names`` is None), from torch.profiler:
     (total ms, {kernel: ms}), or (None, {}) where the profiler shows no
@@ -713,7 +728,8 @@ def device_kernel_ms(fn, names=("csb_mvm_kernel",), reps=20,
     launches a call}) the profile counts only when it recorded ``reps``
     times as many launches of each name and, where ``names`` is None, a
     whole number a call of every kernel; else it is taken again, three
-    times at most, and then it raises."""
+    times at most, and then it raises. ``launch_counts``, a dict, receives
+    each kernel's launches per call of fn."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -747,6 +763,8 @@ def device_kernel_ms(fn, names=("csb_mvm_kernel",), reps=20,
               f"{reps} launches a kernel; times are means over those")
     each = {ev.key: ev.self_device_time_total / 1e3
             / (ev.count if once_per_call else reps) for ev in evs}
+    if launch_counts is not None:
+        launch_counts.update({ev.key: ev.count / reps for ev in evs})
     total = sum(each.values())
     if once_per_call and not all(any(nm in k for k in each) for nm in names):
         print(f"  the profiler recorded no launch of some of {names}")
@@ -3115,27 +3133,47 @@ def paper_phase(dev, frames, sl, ffn) -> dict:
 # B3: the sharded CSB matvec over ranks of one card ([phase sharded])
 # ---------------------------------------------------------------------------
 
+def b3_rows_plain(s, x, rank):
+    """B3's contract on ``rank`` without the exchange, by its plain version
+    on the same tensors (``ref.csb_sharded_rows_ref``)."""
+    x2 = x.reshape(-1, x.shape[-1])
+    cols = csb_sharded._column_table(s.row_map, rank, s.rows_per_dev,
+                                     s.block[0], s.shape[0], x.device)
+    return csb_sharded_rows_ref(*s.shard_arrays(rank), x2, cols,
+                                grid=(s.rows_per_dev, s.grid[1]),
+                                block=s.block, out_dim=s.shape[0])
+
+
 def b3_cases(mesh, cases) -> dict:
     """(a) on this rank: B3 (``csb_matvec_sharded``) on each matrix of
     ``cases`` ({name: (PaddedCSB, x, B1's y on the whole matrix)}) split
-    over the mesh's "model" axis, for every overlap; bit-equal to B1 and
-    within ``TOL`` of B3's plain version (the same gathers), or it
-    raises. Returns the plans, B1 launches per call and the errors."""
+    over the mesh's "model" axis, for every overlap: bit-equal to B1,
+    within ``TOL`` of B3's plain version (the chunked gathers), one kernel
+    launch a call (none on a rank with only pad rows) and no B1 launch;
+    and the kernel's own contract on this rank (``csb_sharded_rows``)
+    within ``TOL`` of its plain version; or it raises. Returns the plans,
+    the launches a call and the errors."""
     n_model = dict(zip(mesh.mesh_dim_names, mesh.shape))["model"]
     rank = mesh.get_local_rank("model")
-    out = {"plans": {}, "b1_per_call": {}, "max_abs_err": 0.0}
+    out = {"plans": {}, "launches": {}, "max_abs_err": 0.0}
     for name, (p, x, want) in cases.items():
         plan, s = partition_padded(p.to("cpu"), n_model)
         s = s.local(rank).to(x.device)
         out["plans"][name] = (plan.imbalance,
                               [len(r) for r in plan.assignment])
+        owns = int(bool(plan.assignment[rank]))
         for ov in SHARD_OVERLAPS:
-            before = csb_mvm.LAUNCHES
+            before = (csb_sharded.LAUNCHES, csb_mvm.LAUNCHES)
             y = csb_matvec_sharded(s, x, mesh=mesh, overlap=ov)
-            out["b1_per_call"][(name, ov)] = csb_mvm.LAUNCHES - before
+            per_call = (csb_sharded.LAUNCHES - before[0],
+                        csb_mvm.LAUNCHES - before[1])
+            out["launches"][(name, ov)] = per_call
             ref = csb_matvec_sharded_ref(s, x, mesh=mesh, overlap=ov)
             _sync(x.device)
             what = f"B3 over {n_model} ranks, {name}, overlap {ov}"
+            if per_call != (owns, 0):
+                raise AssertionError(f"{what}: launches (B3, B1) {per_call}"
+                                     f", expected ({owns}, 0)")
             if y.shape != want.shape or not torch.equal(y, want):
                 diff = (float((y - want).abs().max())
                         if y.shape == want.shape else "a shape")
@@ -3147,39 +3185,64 @@ def b3_cases(mesh, cases) -> dict:
                 raise AssertionError(f"{what}: {err:.3e} from its plain "
                                      f"version (tol {TOL[x.dtype]})")
             out["max_abs_err"] = max(out["max_abs_err"], err)
+        rows = csb_sharded_rows(s, x, rank)
+        ref = b3_rows_plain(s, x, rank)
+        _sync(x.device)
+        err = float((rows - ref).abs().max())
+        if not torch.allclose(rows, ref, rtol=TOL[x.dtype],
+                              atol=TOL[x.dtype]):
+            raise AssertionError(f"B3's rows of rank {rank}, {name}: {err:.3e}"
+                                 f" from their plain version")
+        out["max_abs_err"] = max(out["max_abs_err"], err)
     return out
+
+
+def b3_loop(mesh, loop) -> int:
+    """``SHARD_LOOP`` B3 calls back to back on one matrix with a new x each
+    (``loop`` = (PaddedCSB, xs, B1's ys)), no host wait between them, then
+    every output held bit-equal to B1's: a rank that ran ahead and
+    overwrote a slot a peer had not yet copied out would show here."""
+    p, xs, wants = loop
+    n_model = dict(zip(mesh.mesh_dim_names, mesh.shape))["model"]
+    rank = mesh.get_local_rank("model")
+    s = partition_padded(p.to("cpu"), n_model)[1].local(rank).to(
+        xs[0].device)
+    ys = [csb_matvec_sharded(s, x, mesh=mesh) for x in xs]
+    _sync(xs[0].device)
+    bad = [i for i, (y, w) in enumerate(zip(ys, wants))
+           if not torch.equal(y, w)]
+    if bad:
+        raise AssertionError(f"B3 over {n_model} ranks, {len(xs)} calls "
+                             f"back to back: calls {bad[:10]} differ from B1")
+    return len(ys)
+
+
+def b3_shards(mesh, pairs, dev):
+    n_model = dict(zip(mesh.mesh_dim_names, mesh.shape))["model"]
+    rank = mesh.get_local_rank("model")
+    return [(partition_padded(p.to("cpu"), n_model)[1].local(rank).to(dev),
+             x) for p, x in pairs]
 
 
 def b3_timing(mesh, label, pairs) -> dict:
     """B3 at R = 1 on ``pairs`` of (PaddedCSB, x): CUDA events (median of
     50) beside B1 on the whole matrix (``csb_matvec``) and B3's plain
-    version; the profiler's device time of B3's kernels and copies, of B1,
-    and of B3's all-gathers run alone on buffers of its chunks' shapes
-    (their share of B3's device time), each profile holding every launch
-    of its calls; CUDA-graph replay; and the bound: B1's live bytes plus
-    the gathered rows, or the products at the fp32 rate."""
+    version; the profiler's device time of every kernel B3's calls launch
+    (gated at one kernel a call) and of B1's, each profile holding every
+    launch of its calls; CUDA-graph replay; and the bound: the live bytes
+    (the shard's values and indices, x, and its rows stored once to each of
+    the R = 1 ranks), or the products at the fp32 rate."""
     dev = torch.device("cuda", torch.cuda.current_device())
-    shards = [(partition_padded(p.to("cpu"), 1)[1].local(0).to(dev), x)
-              for p, x in pairs]
-    live = flops = gathered = 0
+    shards = b3_shards(mesh, pairs, dev)
+    live = flops = 0
     for p, x in pairs:
         b, _, ops = mvm_work(p, x)
         live += b
         flops += ops
-        gathered += 4 * x.reshape(-1, x.shape[-1]).shape[0] * p.shape[0]
-    # B3's chunks at its default overlap: one B1 launch and one all-gather
-    # of a (batch padded to 8, chunk rows) fp32 buffer each
-    chunks = [(-(-x.reshape(-1, x.shape[-1]).shape[0] // 8) * 8,
-               (e_ - s_) * s.block[0])
-              for s, x in shards for s_, e_ in csb_sharded._chunk_bounds(
-                  s.rows_per_dev, csb_sharded.DEFAULT_OVERLAP)]
-    bufs = [torch.zeros(shape, dtype=torch.float32, device=dev)
-            for shape in chunks]
-    pg = mesh.get_group("model")
 
-    def b3(overlap=None):
+    def b3():
         for s, x in shards:
-            csb_matvec_sharded(s, x, mesh=mesh, overlap=overlap)
+            csb_matvec_sharded(s, x, mesh=mesh)
 
     def b1():
         for p, x in pairs:
@@ -3189,49 +3252,63 @@ def b3_timing(mesh, label, pairs) -> dict:
         for s, x in shards:
             csb_matvec_sharded_ref(s, x, mesh=mesh)
 
-    def gathers():
-        works = [dist.all_gather([torch.empty_like(y)], y, group=pg,
-                                 async_op=True) for y in bufs]
-        for w in works:
-            w.wait()
-
-    out = {"ms": median_ms(b3), "ms_overlap1": median_ms(lambda: b3(1)),
-           "b1_ms": median_ms(b1), "plain_ms": median_ms(plain_version)}
+    out = {"ms": median_ms(b3), "b1_ms": median_ms(b1),
+           "plain_ms": median_ms(plain_version)}
+    counts = {}
     out["device_ms"], each = device_kernel_ms(
-        b3, None, per_call={"csb_mvm_kernel": len(chunks)})
-    out["allgather_device_ms"], _ = device_kernel_ms(gathers, None,
-                                                     per_call={})
-    out["allgather_share"] = (out["allgather_device_ms"] or 0.0) / \
-        out["device_ms"]
-    copies = sum(v for k, v in each.items() if "memcpy" in k.lower())
+        b3, None, per_call={"csb_sharded_kernel": len(pairs)},
+        launch_counts=counts)
+    out["device_kernels_per_call"] = sum(counts.values()) / len(pairs)
+    if out["device_kernels_per_call"] != 1:
+        raise AssertionError(f"(d) {label}: {counts} device kernels a frame "
+                             f"of {len(pairs)} B3 calls, expected one a call")
     out["b1_device_ms"], _ = device_kernel_ms(
         b1, per_call={"csb_mvm_kernel": len(pairs)})
+    out["device_vs_b1"] = out["device_ms"] / out["b1_device_ms"]
     try:
         out["graph_ms"], out["graph_note"] = graph_ms(b3), None
     except RuntimeError as e:          # a timing only: the gates ran above
         out["graph_ms"], out["graph_note"] = None, str(e).splitlines()[0]
-    bytes_s = (live + gathered) / HBM_BYTES_PER_S
+    bytes_s = live / HBM_BYTES_PER_S
     ops_s = flops / FP32_FLOPS
     out["bound_ms"] = max(bytes_s, ops_s) * 1e3
     out["bound_by"] = "bytes" if bytes_s >= ops_s else "operations"
-    out["bytes"] = live + gathered
+    out["bytes"] = live
     print(f"  (d) {label}, one NCCL rank (median of 50, CUDA events): B3 "
-          f"{out['ms']:.4f} ms (overlap 1: {out['ms_overlap1']:.4f} ms), B1 "
-          f"on the whole matrix {out['b1_ms']:.4f} ms, B3's plain version "
-          f"{out['plain_ms']:.4f} ms; device time (kernels and copies) B3 "
-          f"{_ms(out['device_ms'])}, of which memory copies {copies:.4f} "
-          f"ms; its {len(chunks)} all-gathers alone "
-          f"{_ms(out['allgather_device_ms'])} "
-          f"({100 * out['allgather_share']:.1f}% of B3's); B1 "
-          f"{_ms(out['b1_device_ms'])}; CUDA graph B3 "
+          f"{out['ms']:.4f} ms, B1 on the whole matrix {out['b1_ms']:.4f} "
+          f"ms, B3's plain version {out['plain_ms']:.4f} ms; device time B3 "
+          f"{_ms(out['device_ms'])} in {out['device_kernels_per_call']:g} "
+          f"device kernel a call, B1 {_ms(out['b1_device_ms'])} (B3 / B1 "
+          f"{out['device_vs_b1']:.3f}); CUDA graph B3 "
           f"{_ms(out['graph_ms'])}"
           f"{'' if out['graph_note'] is None else ' (' + out['graph_note'] + ')'}"
-          f"; bound {out['bound_ms']:.5f} ms ({live} live + {gathered} "
-          f"gathered bytes, {flops} flops)")
+          f"; bound {out['bound_ms']:.5f} ms ({live} live bytes, {flops} "
+          f"flops)")
     print("      device time by kernel: " + ", ".join(
         f"{k[:40]} {v:.4f} ms" for k, v in sorted(
             each.items(), key=lambda kv: -kv[1])[:4]))
     return out
+
+
+def b3_rank_events(mesh, pairs) -> dict:
+    """B3 over the ranks of ``mesh`` on ``pairs`` (one SR1 frame's 18
+    MVMs), every rank at once: CUDA events around the frame (median of
+    50) and the host's wall clock over 50 frames ending in a synchronise,
+    both per call."""
+    dev = torch.device("cuda", torch.cuda.current_device())
+    shards = b3_shards(mesh, pairs, dev)
+
+    def b3():
+        for s, x in shards:
+            csb_matvec_sharded(s, x, mesh=mesh)
+
+    ms = median_ms(b3) / len(pairs)
+    t0 = time.perf_counter()
+    for _ in range(50):
+        b3()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3 / (50 * len(pairs))
+    return {"events_ms_per_call": ms, "wall_ms_per_call": wall}
 
 
 def sharded_one_rank(mesh, cases, sr1_pairs, ffn_pairs) -> dict:
@@ -3288,32 +3365,37 @@ def serve_sharded(mesh, layers, frames, want, lin, ffn_x, ffn_want) -> dict:
 
 
 def sharded_two_ranks(mesh, cases, layers, frames, want, lin, ffn_x,
-                      ffn_want) -> dict:
-    out = {"a": b3_cases(mesh, cases)}
+                      ffn_want, loop, sr1_pairs) -> dict:
+    out = {"a": b3_cases(mesh, cases), "loop": b3_loop(mesh, loop),
+           "route": exchange_route(2)}
     out["bc"] = serve_sharded(mesh, layers, frames, want, lin, ffn_x,
                               ffn_want)
+    out["events"] = b3_rank_events(mesh, sr1_pairs)
     return out
 
 
-def sharded_four_ranks(mesh, cases) -> dict:
-    return {"a": b3_cases(mesh, cases)}
+def sharded_four_ranks(mesh, cases, loop) -> dict:
+    return {"a": b3_cases(mesh, cases), "loop": b3_loop(mesh, loop),
+            "route": exchange_route(4)}
 
 
 def print_b3_cases(n_ranks, results) -> float:
-    """(a)'s per-rank results: plans (imbalance, rows per rank) and B1
-    launches per call; returns the max abs error from the plain version."""
+    """(a)'s per-rank results: plans (imbalance, rows per rank) and the
+    launches a call; returns the max abs error from the plain versions."""
     r0 = results[0]["a"]
     for other in results[1:]:
         if other["a"]["plans"] != r0["plans"]:
             raise AssertionError(f"ranks planned differently: "
                                  f"{other['a']['plans']} vs {r0['plans']}")
-    per = {ov: sorted({r["a"]["b1_per_call"][(n, ov)] for r in results
-                       for n in r0["plans"]}) for ov in SHARD_OVERLAPS}
+    per = sorted({v for r in results for v in r["a"]["launches"].values()})
     err = max(r["a"]["max_abs_err"] for r in results)
-    print(f"  (a) R = {n_ranks}: {len(r0['plans'])} matrices x overlap "
-          f"{SHARD_OVERLAPS} bit-equal to B1 on the unsharded matrix on "
-          f"every rank; max abs err from B3's plain version {err:.3e}; B1 "
-          f"launches per rank per call by overlap {per}")
+    loop = (f"; {results[0]['loop']} calls back to back bit-equal on every "
+            f"rank" if "loop" in results[0] else "")
+    print(f"  (a) R = {n_ranks} (exchange: {exchange_route(n_ranks)}): "
+          f"{len(r0['plans'])} matrices x overlap {SHARD_OVERLAPS} bit-equal "
+          f"to B1 on the unsharded matrix on every rank; max abs err from "
+          f"the plain versions {err:.3e}; (B3, B1) launches a call on a rank "
+          f"{per}{loop}")
     for name, (imb, rows) in r0["plans"].items():
         print(f"      {name:28s} imbalance {imb:.4f}, block-rows per rank "
               f"{rows}")
@@ -3322,10 +3404,12 @@ def print_b3_cases(n_ranks, results) -> float:
 
 def sharded_phase(dev, layers, frames, ffn) -> dict:
     """Kernel B3 on one card: (a) against B1 at R = 1 (an NCCL group of
-    one), 2 and 4 (gloo ranks sharing the card), (b) SR1 served sharded
-    and (c) ``csb_dense`` through the mesh on two ranks, (d) B3 timed at
-    R = 1. Every rank is a process of its own (``spawn_ranks``); a rank
-    that fails makes the phase raise."""
+    one), 2 and 4 (gloo ranks sharing the card, exchanging through B3's
+    stores), with ``SHARD_LOOP`` calls back to back at R = 2 and 4, (b) SR1
+    served sharded and (c) ``csb_dense`` through the mesh on two ranks,
+    with B3's per-call events there, (d) B3 timed at R = 1. Every rank is
+    a process of its own (``spawn_ranks``); a rank that fails makes the
+    phase raise."""
     rng = np.random.default_rng(SEED + 3)
     cases, sr1_pairs = {}, []
     for i, (cell, csb, _) in enumerate(layers):
@@ -3345,6 +3429,10 @@ def sharded_phase(dev, layers, frames, ffn) -> dict:
             p, x, csb_matvec(p, x))
         ffn_pairs.append((p, x))
         ffn_want[dtype] = csb_dense(x, frozen)
+    p0 = sr1_pairs[0][0]
+    xs = [torch.from_numpy(rng.standard_normal((1, p0.shape[1])).astype(
+        np.float32)).to(dev) for _ in range(SHARD_LOOP)]
+    loop = (p0, xs, [csb_matvec(p0, x) for x in xs])
     cfg = EngineConfig(frame_warmup=WARMUP)
     want, x, xd = [], frames, frames
     with torch.no_grad():
@@ -3360,51 +3448,63 @@ def sharded_phase(dev, layers, frames, ffn) -> dict:
                       timeout_s=SHARD_TIMEOUT_S)[0]
     t.append(time.perf_counter())
     two = spawn_ranks(sharded_two_ranks, (1, 2), cases, srv_layers, frames,
-                      want, frozen, ffn["x"], ffn_want,
+                      want, frozen, ffn["x"], ffn_want, loop, sr1_pairs,
                       timeout_s=SHARD_TIMEOUT_S)
     t.append(time.perf_counter())
-    four = spawn_ranks(sharded_four_ranks, (1, 4), cases,
+    four = spawn_ranks(sharded_four_ranks, (1, 4), cases, loop,
                        timeout_s=SHARD_TIMEOUT_S)
     t.append(time.perf_counter())
     err = max(print_b3_cases(1, [one]), print_b3_cases(2, two),
               print_b3_cases(4, four))
     bc = [r["bc"] for r in two]
-    # B1 launches a B3 call: one a chunk, DEFAULT_OVERLAP chunks unless a
-    # rank holds fewer block-rows (R = 2's plans, from (a))
-    chunks = {n: min(csb_sharded.DEFAULT_OVERLAP, max(rows))
-              for n, (_, rows) in two[0]["a"]["plans"].items()}
+    # one B3 launch a call on a rank that holds rows of the matrix (R = 2's
+    # plans, from (a)), B1 none
+    plans = two[0]["a"]["plans"]
     calls = WARMUP + 2 * FRAMES
-    sr1 = [n for n in chunks if n.startswith("SR1 ")]
-    expect = {"b": {"b3": calls * len(sr1),
-                    "b1": calls * sum(chunks[n] for n in sr1)},
-              "c": {"b3": len(ffn_want),
-                    "b1": sum(chunks[n] for n in chunks if "FFN" in n)}}
+    sr1 = [n for n in plans if n.startswith("SR1 ")]
     if len(sr1) != len(layers) * MVMS_PER_STEP:
         raise AssertionError(f"{len(sr1)} SR1 matrices in (a)'s plans")
-    for r in bc:
+    for rank, r in enumerate(bc):
+        expect = {"b": {"b3": calls * sum(plans[n][1][rank] > 0
+                                          for n in sr1), "b1": 0},
+                  "c": {"b3": sum(plans[n][1][rank] > 0 for n in plans
+                                  if "FFN" in n), "b1": 0}}
         if r["launches"] != expect or r["shards"] != [(2, "model")]:
-            raise AssertionError(f"(b), (c) on a rank: launches "
+            raise AssertionError(f"(b), (c) on rank {rank}: launches "
                                  f"{r['launches']}, expected {expect}; "
                                  f"shards {r['shards']}")
+    ev = [r["events"] for r in two]
     print(f"  (b) SR1 at full width, {FRAMES} frames at batch 1, over a "
           f"(1, 2) ('data', 'model') mesh: outputs and final states "
           f"bit-equal to the unsharded run through B1 on both ranks, "
           f"{max(r['dense_err'] for r in bc):.3e} from the masked-dense "
-          f"model (bound 1e-4); two ranks sharing one card over gloo: not "
-          f"a multi-GPU number: us_per_frame "
+          f"model (bound 1e-4); two ranks sharing one card, exchanging "
+          f"through B3's stores ({two[0]['route']}): us_per_frame "
           f"{[round(r['us_per_frame'], 1) for r in bc]}, frame p50 "
           f"{[round(r['p50_us'], 1) for r in bc]} us, p99 "
           f"{[round(r['p99_us'], 1) for r in bc]} us (rank 0, rank 1)")
     print(f"  (c) csb_dense at {ARCH}'s FFN through the mesh (fp32, bf16) "
           f"equals its unsharded run on both ranks; launches on each rank, "
           f"each counted from 0 just before its step: (b) "
-          f"{bc[0]['launches']['b']}, (c) {bc[0]['launches']['c']}")
+          f"{[r['launches']['b'] for r in bc]}, (c) "
+          f"{[r['launches']['c'] for r in bc]}")
+    print(f"  B3 at R = 2 on one card, one SR1 frame's {len(sr1_pairs)} MVMs "
+          f"(every rank at once): CUDA events per call "
+          f"{[round(e['events_ms_per_call'], 4) for e in ev]} ms, host wall "
+          f"per call {[round(e['wall_ms_per_call'], 4) for e in ev]} ms "
+          f"(rank 0, rank 1); at R = 1: events "
+          f"{one['sr1']['ms'] / len(sr1_pairs):.4f} ms a call")
     print(f"  sharded phase: spawn + run R = 1 {t[1] - t[0]:.1f} s, R = 2 "
-          f"{t[2] - t[1]:.1f} s, R = 4 {t[3] - t[2]:.1f} s")
+          f"{t[2] - t[1]:.1f} s, R = 4 {t[3] - t[2]:.1f} s; every number of "
+          f"this phase on {card_line()}")
     return {"max_abs_err": err, "launches": bc[0]["launches"]["b"]["b3"],
             "b1_launches": bc[0]["launches"]["b"]["b1"],
-            "us_per_frame_2_ranks_gloo": bc[0]["us_per_frame"],
-            "frame_p99_us_2_ranks_gloo": bc[0]["p99_us"],
+            "exchange_route": two[0]["route"],
+            "us_per_frame_2_ranks": bc[0]["us_per_frame"],
+            "frame_p99_us_2_ranks": bc[0]["p99_us"],
+            "events_ms_per_call_2_ranks": ev[0]["events_ms_per_call"],
+            "wall_ms_per_call_2_ranks": ev[0]["wall_ms_per_call"],
+            "loop_calls": {"R2": two[0]["loop"], "R4": four[0]["loop"]},
             "sr1": one["sr1"], "ffn": one["ffn"],
             "plans": {f"R{n}": r[0]["a"]["plans"]
                       for n, r in ((1, [one]), (2, two), (4, four))}}
@@ -3860,14 +3960,14 @@ def main() -> int:
         "plain_ms": sh["sr1"]["plain_ms"], "bound_ms": sh["sr1"]["bound_ms"],
         "bound_by": sh["sr1"]["bound_by"],
         **{k: sh["sr1"][k] for k in (
-            "ms_overlap1", "b1_ms", "device_ms", "b1_device_ms",
-            "allgather_device_ms", "allgather_share", "graph_ms",
-            "graph_note")},
+            "b1_ms", "device_ms", "device_kernels_per_call", "b1_device_ms",
+            "device_vs_b1", "graph_ms", "graph_note")},
         **{f"lm_ffn_{d}_{k}": v for d, r in sh["ffn"].items()
            for k, v in r.items()},
-        "b1_launches": sh["b1_launches"],
-        "us_per_frame_2_ranks_gloo": sh["us_per_frame_2_ranks_gloo"],
-        "frame_p99_us_2_ranks_gloo": sh["frame_p99_us_2_ranks_gloo"],
+        **{k: sh[k] for k in (
+            "b1_launches", "exchange_route", "us_per_frame_2_ranks",
+            "frame_p99_us_2_ranks", "events_ms_per_call_2_ranks",
+            "wall_ms_per_call_2_ranks", "loop_calls")},
         "imbalance": {r: {n: v[0] for n, v in plans.items()}
                       for r, plans in sh["plans"].items()},
     }]}))

@@ -15,6 +15,8 @@ CSB path needs it (ROADMAP item 21).
                     ``Replicate()``) of every leaf of a parameter tree.
 ``launch``        — ``spawn_ranks``: one process per rank of a mesh (the
                     port runs SPMD), joined into a process group.
+``symm``          — symmetric device buffers, opened in every rank through
+                    CUDA IPC: the memory kernel B3 stores its rows in.
 ``compress``      — int8 error-feedback gradient compression (the DP
                     all-reduce's wire stage; ``train.loop`` runs it).
 

@@ -16,7 +16,12 @@ refuses two ranks on one card) they exchange over gloo, which also takes
 CUDA tensors, staged through the host. Ranks on the CPU use gloo.
 
 A rank that raises fails the call with that rank's traceback, and the
-other ranks are stopped. Booting a rank (spawning the interpreter,
+other ranks are stopped. Where several ranks failed (a peer of the rank
+that raised fails in its collective too), the error puts the traceback
+written first ahead of the others, whichever rank ``join`` noticed
+first. Ranks on the card synchronise and meet at a barrier before they
+leave the group, so that no rank exits while a peer's kernel may still
+store into its memory (kernel B3's exchange). Booting a rank (spawning the interpreter,
 importing torch, joining the group) has its own limit, ``BOOT_S``; the
 deadline ``timeout_s`` starts once every rank has joined, so a slow
 machine's boot never counts against ``fn``. A rank still running at
@@ -28,12 +33,18 @@ from __future__ import annotations
 
 import datetime
 import math
+import os
+import pickle
+import signal
 import tempfile
 import time
 from pathlib import Path
 
 import torch
 import torch.distributed as dist
+from torch.multiprocessing import (
+    ProcessExitedException, ProcessRaisedException,
+)
 
 from repro_torch._device import resolve_device
 
@@ -45,25 +56,79 @@ BOOT_S = 300.0
 def _rank_main(rank: int, world: int, mesh_shape, device_type: str,
                cards: int, backend: str, workdir: str,
                group_timeout_s: float) -> None:
-    if device_type == "cuda":
-        torch.cuda.set_device(rank % cards)
-    # the job comes through a file: a large pickle through the start pipe
-    # would hold each start() until its rank has booted
-    fn, args = torch.load(f"{workdir}/job.pt", weights_only=False)
-    dist.init_process_group(
-        backend, init_method=f"file://{workdir}/store", rank=rank,
-        world_size=world,
-        timeout=datetime.timedelta(seconds=group_timeout_s))
-    from torch.distributed.device_mesh import init_device_mesh
-    mesh = init_device_mesh(device_type, tuple(mesh_shape),
-                            mesh_dim_names=("data", "model"))
-    open(f"{workdir}/joined{rank}", "w").close()
-    out = fn(mesh, *args)
-    torch.save(out, f"{workdir}/result{rank}.pt")
-    dist.destroy_process_group()
+    try:
+        if device_type == "cuda":
+            torch.cuda.set_device(rank % cards)
+        # the job comes through a file: a large pickle through the start
+        # pipe would hold each start() until its rank has booted
+        fn, args = torch.load(f"{workdir}/job.pt", weights_only=False)
+        dist.init_process_group(
+            backend, init_method=f"file://{workdir}/store", rank=rank,
+            world_size=world,
+            timeout=datetime.timedelta(seconds=group_timeout_s))
+        from torch.distributed.device_mesh import init_device_mesh
+        mesh = init_device_mesh(device_type, tuple(mesh_shape),
+                                mesh_dim_names=("data", "model"))
+        open(f"{workdir}/joined{rank}", "w").close()
+        out = fn(mesh, *args)
+        torch.save(out, f"{workdir}/result{rank}.pt")
+        if device_type == "cuda":
+            torch.cuda.synchronize()
+            dist.barrier(**({"device_ids": [rank % cards]}
+                            if backend == "nccl" else {}))
+        dist.destroy_process_group()
+    except Exception:
+        # when this rank failed, to the nanosecond: a file's mtime ticks
+        # too coarsely to order two ranks that fail within a few ms
+        Path(workdir, f"failed{rank}").write_text(str(time.time_ns()))
+        raise
 
 
-def _wait(ctx, world: int, limit_s: float, what: str,
+# how ``ProcessContext.join`` stops the ranks left once one has failed
+_STOPPED = (-signal.SIGTERM, -signal.SIGKILL)
+
+
+def _failure(ctx, err: Exception, workdir: str) -> Exception:
+    """One error for the ranks that failed, once ``join`` has raised
+    ``err`` and stopped the rest. ``join`` reports the lowest-numbered
+    rank among those that had ended when it polled, not the first to
+    fail, so the error is rebuilt from every traceback the ranks wrote
+    (``ctx.error_files``), the first-written first (by the time each rank
+    stamped when it failed, else the file's mtime); a rank that ended
+    without one (a signal, an exit code), other than by ``join``'s own
+    stopping, goes ahead of them: its peers' errors follow from it."""
+    written = []
+    for r, path in enumerate(ctx.error_files):
+        try:
+            with open(path, "rb") as fh:
+                trace = pickle.load(fh)
+            stamp = Path(workdir, f"failed{r}")
+            when = (int(stamp.read_text()) if stamp.exists()
+                    else os.stat(path).st_mtime_ns)
+            written.append((when, r, trace))
+        except FileNotFoundError:
+            continue
+    written.sort()
+    traced = {r for _, r, _ in written}
+    silent = [(r, p.exitcode) for r, p in enumerate(ctx.processes)
+              if r not in traced and p.exitcode not in (0, None, *_STOPPED)]
+    if not written and not silent:
+        return err
+    parts = []
+    for r, code in silent:
+        how = (f"signal {signal.Signals(-code).name}" if code < 0
+               else f"exit code {code}")
+        parts.append(f"rank {r} ended without a traceback ({how})")
+    parts += [f"rank {r} raised:\n{trace}" for _, r, trace in written]
+    msg = "\n\n-- " + "\n\n-- then ".join(parts)
+    r = silent[0][0] if silent else written[0][1]
+    pid = ctx.processes[r].pid
+    if silent:
+        return ProcessExitedException(msg, r, pid, silent[0][1])
+    return ProcessRaisedException(msg, r, pid)
+
+
+def _wait(ctx, world: int, limit_s: float, what: str, workdir: str,
           pending=None) -> None:
     """Join the ranks until they have all ended or, given ``pending`` (a
     function: the ranks yet to reach some point, polled every 0.2 s),
@@ -73,10 +138,13 @@ def _wait(ctx, world: int, limit_s: float, what: str,
     deadline = time.monotonic() + limit_s
     while pending is None or pending():
         left = max(deadline - time.monotonic(), 0)
-        # join re-raises a failed rank's traceback and stops the others
-        if ctx.join(timeout=left if pending is None else min(left, 0.2),
-                    grace_period=5):
-            return
+        # join raises for a failed rank and stops the others
+        try:
+            if ctx.join(timeout=left if pending is None else min(left, 0.2),
+                        grace_period=5):
+                return
+        except (ProcessRaisedException, ProcessExitedException) as e:
+            raise _failure(ctx, e, workdir) from None
         if time.monotonic() >= deadline:
             ranks = range(world) if pending is None else pending()
             live = [r for r in ranks if ctx.processes[r].is_alive()]
@@ -105,9 +173,9 @@ def spawn_ranks(fn, mesh_shape: tuple[int, int], *args,
                   backend, workdir, BOOT_S + timeout_s))
         joined = [Path(workdir, f"joined{r}") for r in range(world)]
         try:
-            _wait(ctx, world, BOOT_S, "booting", pending=lambda: [
+            _wait(ctx, world, BOOT_S, "booting", workdir, pending=lambda: [
                 r for r, p in enumerate(joined) if not p.exists()])
-            _wait(ctx, world, timeout_s, "running")
+            _wait(ctx, world, timeout_s, "running", workdir)
         finally:
             for p in ctx.processes:
                 if p.is_alive():

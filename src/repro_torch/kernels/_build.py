@@ -3,9 +3,11 @@
 Every ``csrc/*.cu`` exposes a plain C interface and is compiled on first
 use into a shared library under ``build/`` at the repository root (or
 the directory ``REPRO_TORCH_BUILD`` names), for ``sm_90a``. A library's
-file name carries a hash of its source and flags, so an edited source is
-rebuilt and a stale library is never loaded. Kernels are built only from
-the sources in this package. Nothing here runs at import time.
+file name carries a hash of its source, of every header beside it
+(``csrc/*.cuh``, which the sources include) and of the flags, so an
+edited source or header is rebuilt and a stale library is never loaded.
+Kernels are built only from the sources in this package. Nothing here
+runs at import time.
 """
 from __future__ import annotations
 
@@ -43,9 +45,11 @@ def _nvcc() -> str:
 
 
 def _target(src: Path) -> Path:
-    digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return build_dir() / f"lib{src.stem}-{digest}.so"
+    h = hashlib.sha256(src.read_bytes())
+    for header in sorted(src.parent.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return build_dir() / f"lib{src.stem}-{h.hexdigest()[:16]}.so"
 
 
 def build_all() -> dict[str, str]:

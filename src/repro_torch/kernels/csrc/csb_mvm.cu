@@ -17,7 +17,7 @@
 // needs (m and n, then vals, col_idx and row_idx, then the gathered x),
 // so the design puts every block of a block-row in flight at once.
 //
-// The design:
+// The design (the block-row body is csb_block.cuh, which kernel B3 runs too):
 //   * One CTA per (block-row, batch tile). Its warps are cut into groups
 //     of `gs` lanes (a power of two >= Pm, at most 32), one group per
 //     (block-column, batch row) item, so all blocks of the block-row load
@@ -47,19 +47,9 @@
 
 #include <cstddef>
 
+#include "csb_block.cuh"
+
 namespace {
-
-constexpr int kPre = 16;  // live values of a lane's first row loaded with the gather
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-// part[tr][chunk][bm] floats: per true batch row, block-column of the
-// chunk and output row of the block-row, that block's dot product; then
-// xs[threads / gs][pn] floats: each lane group's gathered x.
-size_t smem_bytes(int bm, int pn, int tr, int chunk, int threads, int gs) {
-  return sizeof(float) * ((size_t)tr * chunk * bm + (size_t)(threads / gs) * pn);
-}
 
 template <typename TV, typename TX>
 __global__ void __launch_bounds__(1024)
@@ -69,67 +59,13 @@ __global__ void __launch_bounds__(1024)
                    int rows, int bc, int bm, int bn, int pm, int pn, int tb, int tr, int gs,
                    int chunk) {
   extern __shared__ float part[];
-  float* xs = part + (size_t)tr * chunk * bm + (size_t)(threadIdx.x / gs) * pn;  // this group's x
   const int i = blockIdx.x;        // block-row
   const int t0 = blockIdx.y * tb;  // first batch row of the tile
   const int nt = max(0, min(tb, rows - t0));  // true rows of the tile (<= tr)
-  const size_t ldx = (size_t)bc * bn;
   const size_t ldo = (size_t)gridDim.x * bm;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int nwarps = blockDim.x >> 5;
-  const int per_warp = 32 / gs, sub = lane / gs, k0 = lane % gs;
-  const int t_out = tid / bm, r_out = tid % bm;  // this thread's output
-  float acc = 0.f;
-
-  for (int j0 = 0; j0 < bc; j0 += chunk) {
-    const int cn = min(chunk, bc - j0);
-    const int items = cn * nt;
-    if (j0 > 0) __syncthreads();  // the previous chunk's sums have been read
-    // The loop bounds are the same on every lane of a warp (__syncwarp).
-    for (int base = warp * per_warp; base < items; base += nwarps * per_warp) {
-      const int it = base + sub;
-      const bool ok = it < items;
-      const int t = ok ? it / cn : 0, jj = ok ? it % cn : 0;
-      float* pr = part + ((size_t)t * chunk + jj) * bm;
-      if (ok)
-        for (int e = k0; e < bm; e += gs) pr[e] = 0.f;
-      __syncwarp();
-      // Two dependent rounds of loads per block: m, n and col_idx; then x
-      // at col_idx, the first kPre live values of row k0 and its row_idx.
-      const size_t b = (size_t)i * bc + j0 + jj;
-      const int mb = ok ? m[b] : 0, nb = ok ? n[b] : 0;
-      const TX* xr = x + (t0 + t) * ldx + (size_t)(j0 + jj) * bn;
-#pragma unroll 4
-      for (int l = k0; l < pn; l += gs) {
-        const int c = ok ? col_idx[b * pn + l] : 0;
-        if (l < nb) xs[l] = to_f32(xr[c]);
-      }
-      const TV* vr0 = vals + (b * pm + k0) * pn;
-      float v[kPre];
-#pragma unroll
-      for (int u = 0; u < kPre; ++u) v[u] = (k0 < mb && u < nb) ? to_f32(vr0[u]) : 0.f;
-      const int r0 = k0 < mb ? row_idx[b * pm + k0] : 0;
-      __syncwarp();
-      for (int k = k0; k < mb; k += gs) {
-        const TV* vr = vals + (b * pm + k) * pn;
-        float s = 0.f;
-        int l = 0;
-        if (k == k0) {
-#pragma unroll
-          for (int u = 0; u < kPre; ++u)
-            if (u < nb) s = fmaf(v[u], xs[u], s);
-          l = kPre;
-        }
-#pragma unroll 8
-        for (; l < nb; ++l) s = fmaf(to_f32(vr[l]), xs[l], s);
-        pr[k == k0 ? r0 : row_idx[b * pm + k]] = s;
-      }
-      __syncwarp();
-    }
-    __syncthreads();
-    if (t_out < nt)
-      for (int jj = 0; jj < cn; ++jj) acc += part[((size_t)t_out * chunk + jj) * bm + r_out];
-  }
+  const float acc = csb::block_row<TV, TX>(part, vals, row_idx, col_idx, m, n, x, bc * bn, i,
+                                           t0, nt, bc, bm, bn, pm, pn, tr, gs, chunk);
+  const int t_out = threadIdx.x / bm, r_out = threadIdx.x % bm;  // this thread's output
   if (t_out < tb) out[(t0 + t_out) * ldo + (size_t)i * bm + r_out] = t_out < nt ? acc : 0.f;
 }
 
@@ -139,7 +75,7 @@ cudaError_t launch(const void* vals, const void* row_idx, const void* col_idx, c
                    int bm, int bn, int pm, int pn, int tb, int threads, int gs, int chunk,
                    cudaStream_t stream) {
   const int tr = min(tb, rows);
-  const size_t smem = smem_bytes(bm, pn, tr, chunk, threads, gs);
+  const size_t smem = csb::smem_bytes(bm, pn, tr, chunk, threads, gs);
   auto kernel = csb_mvm_kernel<TV, TX>;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,

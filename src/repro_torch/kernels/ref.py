@@ -8,6 +8,11 @@ runs it in place of the kernel; on the card it is only the comparison
 point. ``densify`` rebuilds the ``(out, in)`` matrix; it is exact, since
 each element is placed, never summed with another.
 
+``csb_sharded_rows_ref`` is the contract of kernel B3
+(``csrc/csb_sharded.cu``) on one rank without the exchange: the rank's
+output rows of a block-row shard, each at its global column, zeros
+elsewhere. Summed over the ranks it is the product.
+
 ``paged_attn_ref`` takes exactly the arguments of the paged-attention
 kernel's wrapper (``paged_attn.paged_attn_cuda``) and returns what the
 kernel returns: the ``(B, H, Dv)`` fp32 single-query attention of every
@@ -22,6 +27,7 @@ summation order over wide heads.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.core.csb_format import PaddedCSB
 
@@ -58,6 +64,23 @@ def csb_mvm_ref(vals, row_idx, col_idx, m, n, x, *, grid, block
             f"x has {x.shape[-1]} columns, the block grid {grid[1] * block[1]}")
     w = _dense_padded(vals, row_idx, col_idx, m, n, grid, block)
     return x.to(torch.float32) @ w.to(torch.float32).T
+
+
+def csb_sharded_rows_ref(vals, row_idx, col_idx, m, n, x, cols, *, grid,
+                         block, out_dim: int) -> torch.Tensor:
+    """(B, out_dim) fp32: the rows of y = x @ W^T that one rank's shard
+    computes, at their global columns. The arrays are the shard's
+    ``(R, Bc)`` block grid (``grid``), x is (B, in) with in <= Bc * bn (the
+    rest reads as zeros), and ``cols`` (R * bm,) int32 names each local
+    output row's global column, or -1 for none (a pad row, or a row past
+    the matrix); the other columns are 0."""
+    xp = F.pad(x, (0, grid[1] * block[1] - x.shape[-1]))
+    y = csb_mvm_ref(vals, row_idx, col_idx, m, n, xp, grid=grid, block=block)
+    out = torch.zeros((x.shape[0], out_dim), dtype=torch.float32,
+                      device=x.device)
+    keep = cols >= 0
+    out[:, cols[keep].long()] = y[:, keep]
+    return out
 
 
 def paged_attn_ref(q, k_pool, v_pool, page_table, pos, *, scale: float,

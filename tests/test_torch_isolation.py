@@ -53,6 +53,7 @@ def test_paper_subpackages_alone_load_no_jax_or_repro(module):
 
 @pytest.mark.parametrize("module", ["repro_torch.dist",
                                     "repro_torch.dist.launch",
+                                    "repro_torch.dist.symm",
                                     "repro_torch.kernels.csb_sharded"])
 def test_sharded_modules_alone_load_no_jax_or_repro(module):
     """The sharded CSB path's modules, imported first and alone in a fresh
