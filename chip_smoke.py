@@ -225,7 +225,7 @@ Phases, each of which raises (and the script exits nonzero) on failure:
    CUDA-graph replay, and the bound (the live bytes). A rank that fails
    or outlives its deadline fails the phase.
 
-15. Training (``[phase train]``), last. TF32 is off (printed). (a)
+15. Training (``[phase train]``). TF32 is off (printed). (a)
    gemma-2b at full width and depth (18 layers, d_model 2048, 8 heads
    over 1 KV head of 256, GeGLU d_ff 16384, vocab 256000, untied head:
    3.03 B parameters, bf16) through ``repro_torch.launch.train.main``, the
@@ -252,6 +252,31 @@ Phases, each of which raises (and the script exits nonzero) on failure:
    (``CUBLAS_WORKSPACE_CONFIG`` is set before cuBLAS starts). A JSON line
    ``{"train": ...}`` holds the phase's numbers.
 
+16. Training on a mesh (``[phase mesh-train]``), after ``[phase train]``
+   has freed its model. No kernel of the port runs (the launch counts
+   must not move). (a) gemma-2b at full width and depth, bf16, through
+   ``launch.train.main(["--arch", "gemma-2b", "--mesh", "1x2", "--steps",
+   "4"])``: two ranks sharing this card over gloo (DTensor's collectives
+   as c10d's synchronous ones, ``dist.gloo_cuda``), tensor-parallel over
+   "model"; every loss finite and alike on both ranks, and each within
+   MESH_LOSS_RTOL relative of ``[phase train]`` (a)'s at the same step
+   (the same seed, batches and learning rates: warm-up 10 exceeds both
+   runs' steps); per-rank peak memory, step wall p50 and the collectives of
+   step 0 by op, printed as two ranks sharing one card, not a multi-GPU
+   number. Then the state check, which bf16's losses cannot make: at full
+   width and 4 layers, two steps on one card and on 1x2, the norms of
+   AdamW's m and v and of the params' change per tensor within
+   MESH_STATE_RTOL, alike on both ranks. (b) reduced gemma-2b (fp32) on 2x1 (also with int8
+   compression), 1x2 and 2x1x2 meshes, reduced deepseek-v2-236b and
+   mamba2-370m on 1x2: each rank's losses alike and within (c)'s 1e-4 of
+   the unsharded run on the CPU from the same weights and batches. (c)
+   Adafactor, int8 compression and two microbatches, each 4 steps at
+   gemma-2b's full width on one card (compression at 12 layers): losses
+   finite, peak memory, step wall, Adafactor's update and the wire
+   stage (compress + decompress) timed alone; and each at the reduced
+   width, card against CPU within 1e-4. A JSON line ``{"mesh_train":
+   ...}`` holds the phase's numbers.
+
 The line before the last is a JSON object with one entry per kernel (B1,
 B2, B3); the last line is ``{"ok": true, "device": {...}}``. Without CUDA the script
 exits nonzero and prints no result.
@@ -261,6 +286,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import gc
+import itertools
 import json
 import math
 import os
@@ -448,6 +474,38 @@ REDUCED_STEPS = 5          # (c): card against CPU, reduced gemma-2b
 # warm-up lrs <= 4e-4 keep a flipped element's move small: 100x that
 REDUCED_LOSS_TOL = 1e-4
 OPT_TIMING_REPS = 5
+# [phase mesh-train]: the dense placements over ranks sharing the card
+MESH_STEPS = 4             # (a) and (c): the first step sets up
+MESH_FULL = "1x2"          # (a): gemma-2b tensor-parallel over "model"
+# (a): each loss against [phase train] (a)'s at the same step (the same
+# seed, batches and learning rates: warm-up 10 exceeds both runs' steps;
+# TRAIN_STEPS >= MESH_STEPS). tools/mesh_loss_gap.py on the card read a
+# sound 1x2 run 1.18e-4 from one card, and runs with one gradient's
+# reduction skipped 9.06e-5 and 7.82e-5: bf16's rounding hides such a
+# fault in four losses, so this bound only catches a gross one; the
+# state check below catches the skipped reduction
+MESH_LOSS_RTOL = 1e-3
+# (a)'s state check: AdamW's moments and the params' change, per tensor,
+# mesh against one card; full width, cut depth. Step 0 (lr 0) fills the
+# moments with the reduced, clipped gradients; step 1 moves the params
+MESH_STATE_LAYERS, MESH_STATE_STEPS = 4, 2
+MESH_STATE_RTOL = 1e-2
+# (b): reduced configs per mesh, each card run against the CPU's
+MESH_REDUCED = {
+    (2, 1): (("gemma-2b", {}), ("gemma-2b", {"compress_grads": True})),
+    (1, 2): (("gemma-2b", {}), ("deepseek-v2-236b", {}),
+             ("mamba2-370m", {})),
+    (2, 1, 2): (("gemma-2b", {}),),
+}
+# (c): item 25's features, each alone on one card
+FEATURES = {"adafactor": {"optimizer": "adafactor"},
+            "int8": {"compress_grads": True},
+            "microbatches2": {"microbatches": 2}}
+# (c)'s depth per feature at full width: int8 compression keeps an fp32
+# residual beside AdamW's moments, and at all 18 layers it peaked at
+# 78.79 GB on the card with nothing else held (PERF.md §6), too close
+# to 80 GB beside this script's own state: 12 layers
+FEATURE_LAYERS = {"int8": 12}
 
 
 def card_line() -> str:
@@ -3584,8 +3642,9 @@ def train_full(dev) -> dict:
     base = torch.cuda.memory_allocated()
     reg = obs_metrics.enable()
     try:
-        params, hist = launch_train.main(["--arch", ARCH, "--steps",
-                                          str(TRAIN_STEPS)])
+        ranks, hist = launch_train.main(["--arch", ARCH, "--steps",
+                                         str(TRAIN_STEPS)])
+        params = ranks.pop()["params"]
         wall_us = reg.histogram("train/step/wall_us").summary()
     finally:
         obs_metrics.disable()
@@ -3826,6 +3885,351 @@ def train_phase(dev) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Training on a mesh ([phase mesh-train]): the dense placements, ranks
+# sharing the one card over gloo; item 25's features on one card
+# ---------------------------------------------------------------------------
+
+def _p50(hist) -> float:
+    return float(np.percentile([h["dt"] for h in hist[1:]], 50)) * 1e3
+
+
+def mesh_full(one_card: list[float]) -> dict:
+    """(a) gemma-2b at full width and depth, bf16, through
+    ``launch.train.main(["--mesh", "1x2"])``: two ranks on the one card,
+    tensor-parallel over "model". Every loss finite and each within
+    MESH_LOSS_RTOL of [phase train] (a)'s at the same step."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    ranks, hist = launch_train.main(["--arch", ARCH, "--mesh", MESH_FULL,
+                                     "--steps", str(MESH_STEPS)])
+    secs = time.perf_counter() - t0
+    losses = [h["loss"] for h in hist]
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, one_card)]
+    if len(hist) != MESH_STEPS or not all(map(math.isfinite, losses)) \
+            or max(rel) > MESH_LOSS_RTOL:
+        raise AssertionError(f"{ARCH} on a {MESH_FULL} mesh: losses "
+                             f"{losses}, relative to one card's "
+                             f"{one_card[:MESH_STEPS]}: {rel} (bound "
+                             f"{MESH_LOSS_RTOL})")
+    per_rank = []
+    for r, res in enumerate(ranks):
+        if [h["loss"] for h in res["history"]] != losses:
+            raise AssertionError(f"rank {r}'s losses differ from rank 0's")
+        per_rank.append({"peak_gb": res["peak_bytes"] / 1e9,
+                         "step_p50_ms": _p50(res["history"]),
+                         "step_ms": [h["dt"] * 1e3 for h in res["history"]],
+                         "collectives_step0": res["collectives_step0"]})
+    print(f"  (a) {ARCH}, full width and depth, bf16, AdamW, "
+          f"{MESH_STEPS} steps through launch.train.main(--mesh "
+          f"{MESH_FULL}): two ranks sharing this card ({card_line()}), gloo "
+          f"(host-staged collectives), not a multi-GPU number; {secs:.1f} s "
+          f"with the ranks' boot; the parent holds {held / 1e9:.2f} GB")
+    print(f"      losses {losses}; relative to one card's at each step "
+          f"{[f'{v:.3e}' for v in rel]} (bound {MESH_LOSS_RTOL})")
+    for r, pr in enumerate(per_rank):
+        n = sum(pr["collectives_step0"].values())
+        print(f"      rank {r}: peak {pr['peak_gb']:.2f} GB; steps "
+              f"1..{MESH_STEPS - 1} wall p50 {pr['step_p50_ms']:.1f} ms "
+              f"({[round(v, 1) for v in pr['step_ms']]} ms); {n} "
+              f"collectives in step 0: {pr['collectives_step0']}")
+    return {"losses": losses, "rel": rel, "ranks": per_rank, "secs": secs}
+
+
+def train_state(mesh=None) -> dict:
+    """gemma-2b at full width and MESH_STATE_LAYERS layers, bf16, from
+    the launcher's seeded init and batch stream: MESH_STATE_STEPS steps
+    of the loop's step (AdamW, the launcher's schedule), on one card or,
+    given a mesh, placed and ruled as the launcher places it. Per tensor
+    of the params (in their order): the norms of AdamW's m and v and of
+    the params' change."""
+    from repro_torch._device import resolve_device
+    from repro_torch.dist.api import place_tree, whole
+    from repro_torch.dist.rules import (
+        ShardingPolicy, activation_rules, batch_specs, param_specs,
+    )
+    from repro_torch.launch.shardspec import to_named
+    cfg = dataclasses.replace(get_config(ARCH), n_layers=MESH_STATE_LAYERS)
+    dev = resolve_device(None if mesh is None else mesh.device_type)
+    rules = bspecs = None
+    if mesh is not None:
+        policy = ShardingPolicy()
+        rules = activation_rules(cfg, mesh, policy, global_batch=TRAIN_BATCH)
+    with use_rules(rules):
+        params = LM.init_params(cfg, torch.Generator(dev).manual_seed(0),
+                                dev)
+        if mesh is not None:
+            params = place_tree(params, to_named(
+                mesh, param_specs(cfg, params, mesh, policy)))
+            bspecs = batch_specs(cfg, "train", mesh,
+                                 global_batch=TRAIN_BATCH)
+        start = [t.clone() for t in _flat(params)]
+        step_fn, opt = make_train_step(
+            lambda p, b: LM.forward_loss(p, b, cfg), TrainConfig(lr=TRAIN_LR),
+            linear_warmup_cosine(TRAIN_LR, TRAIN_WARMUP, MESH_STEPS))
+        state = opt.init(params)
+        task = CharLMTask(vocab=min(cfg.vocab, 256), seed=0)
+        batches = sharded_batches(itertools.islice(lm_batch_iterator(
+            task, TRAIN_BATCH, TRAIN_SEQ), MESH_STATE_STEPS), mesh, bspecs,
+            device=dev)
+        for step, batch in batches:
+            params, state, *_ = step_fn(params, state, None, None, batch,
+                                        torch.tensor(step, dtype=torch.int32))
+
+        def norm(t):
+            return float(whole(t.float().square().sum()).sqrt())
+        return {"m": [norm(t) for t in _flat(state.inner["m"])],
+                "v": [norm(t) for t in _flat(state.inner["v"])],
+                "update": [norm(t - t0) for t, t0 in
+                           zip(_flat(params), start)]}
+
+
+def state_gap(got: dict, want: dict) -> dict:
+    """Per statistic of :func:`train_state`, the largest relative gap
+    of ``got``'s norms from ``want``'s over the tensors."""
+    return {k: max(abs(a - b) / b if b else abs(a)
+                   for a, b in zip(got[k], want[k])) for k in want}
+
+
+def mesh_state() -> dict:
+    """(a)'s state check: :func:`train_state` on one card and on the
+    MESH_FULL mesh, each tensor's norms within MESH_STATE_RTOL."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    one = train_state()
+    gc.collect()
+    torch.cuda.empty_cache()
+    ranks = spawn_ranks(train_state, launch_train.make_mesh(MESH_FULL)[0],
+                        timeout_s=SHARD_TIMEOUT_S)
+    secs = time.perf_counter() - t0
+    for r, res in enumerate(ranks[1:], 1):
+        if res != ranks[0]:
+            raise AssertionError(f"rank {r}'s optimizer state differs "
+                                 f"from rank 0's")
+    gap = state_gap(ranks[0], one)
+    if max(gap.values()) > MESH_STATE_RTOL:
+        raise AssertionError(f"{ARCH} ({MESH_STATE_LAYERS} layers) on a "
+                             f"{MESH_FULL} mesh: AdamW's state and update "
+                             f"{gap} from one card's (bound "
+                             f"{MESH_STATE_RTOL})")
+    print(f"      state check: {ARCH} at full width, {MESH_STATE_LAYERS} "
+          f"layers, {MESH_STATE_STEPS} steps on one card and on "
+          f"{MESH_FULL} ({secs:.1f} s): the largest relative gap over "
+          f"{len(one['m'])} tensors of the norms of AdamW's m "
+          f"{gap['m']:.3e}, v {gap['v']:.3e}, the params' change "
+          f"{gap['update']:.3e} (bound {MESH_STATE_RTOL})")
+    return {"gap": gap, "secs": secs}
+
+
+def mesh_reduced_rank(mesh, cases) -> list:
+    """One rank of (b): each (arch, TrainConfig overrides, CPU params)
+    trained as the launcher does on its mesh; the losses."""
+    from repro_torch._device import resolve_device
+    from repro_torch.dist.api import place_tree
+    from repro_torch.dist.rules import (
+        ShardingPolicy, activation_rules, batch_specs, param_specs,
+    )
+    from repro_torch.launch.shardspec import to_named
+    out = []
+    for arch, over, params in cases:
+        cfg = get_reduced(arch)
+        policy = ShardingPolicy()
+        rules = activation_rules(cfg, mesh, policy, global_batch=TRAIN_BATCH)
+        task = CharLMTask(vocab=min(cfg.vocab, 256), seed=0)
+        with use_rules(rules):
+            p = _copy(params, resolve_device(mesh.device_type))
+            p = place_tree(p, to_named(mesh, param_specs(cfg, p, mesh,
+                                                         policy)))
+            batches = sharded_batches(
+                lm_batch_iterator(task, TRAIN_BATCH, TRAIN_SEQ), mesh,
+                batch_specs(cfg, "train", mesh, global_batch=TRAIN_BATCH))
+            tcfg = TrainConfig(lr=TRAIN_LR, steps=REDUCED_STEPS,
+                               log_every=10 ** 9, **over)
+            _, hist = train(lambda q, b: LM.forward_loss(q, b, cfg), p,
+                            batches, tcfg, log=lambda *_: None)
+        out.append([h["loss"] for h in hist])
+    return out
+
+
+def _cpu_losses(arch, over, params) -> list:
+    cfg = get_reduced(arch)
+    task = CharLMTask(vocab=min(cfg.vocab, 256), seed=0)
+    tcfg = TrainConfig(lr=TRAIN_LR, steps=REDUCED_STEPS, log_every=10 ** 9,
+                       **over)
+    _, hist = train(lambda q, b: LM.forward_loss(q, b, cfg),
+                    _copy(params, "cpu"),
+                    lm_batch_iterator(task, TRAIN_BATCH, TRAIN_SEQ), tcfg,
+                    log=lambda *_: None)
+    return [h["loss"] for h in hist]
+
+
+def mesh_reduced() -> dict:
+    """(b) reduced configs (fp32) on 2x1, 1x2 and 2x1x2 meshes of ranks
+    sharing the card, each against the port's unsharded CPU run from the
+    same weights (made on the CPU, seeded) and batches, at [phase train]
+    (c)'s bound."""
+    params = {a: LM.init_params(get_reduced(a),
+                                torch.Generator().manual_seed(SEED), "cpu")
+              for a in {a for cs in MESH_REDUCED.values() for a, _ in cs}}
+    cpu, out = {}, {}
+    for shape, cases in MESH_REDUCED.items():
+        t0 = time.perf_counter()
+        got = spawn_ranks(mesh_reduced_rank, shape,
+                          [(a, o, params[a]) for a, o in cases],
+                          timeout_s=SHARD_TIMEOUT_S)
+        secs = time.perf_counter() - t0
+        name = "x".join(map(str, shape))
+        for i, (arch, over) in enumerate(cases):
+            key = (arch, tuple(sorted(over.items())))
+            if key not in cpu:
+                cpu[key] = _cpu_losses(arch, over, params[arch])
+            diffs = [abs(a - b) for a, b in zip(got[0][i], cpu[key])]
+            same = all(g[i] == got[0][i] for g in got)
+            what = f"{arch}{' ' + str(over) if over else ''} on {name}"
+            if len(diffs) != REDUCED_STEPS or max(diffs) > REDUCED_LOSS_TOL \
+                    or not same:
+                raise AssertionError(f"(b) {what}: card vs CPU losses "
+                                     f"{diffs} (bound {REDUCED_LOSS_TOL}), "
+                                     f"ranks alike {same}")
+            out[what] = max(diffs)
+            print(f"  (b) {what} ({len(got)} ranks): losses "
+                  f"{[round(v, 6) for v in got[0][i]]}, {max(diffs):.3e} "
+                  f"from the CPU's (bound {REDUCED_LOSS_TOL})")
+        print(f"      {name}: {secs:.1f} s with the ranks' boot")
+    return out
+
+
+def feature_timing(name, params) -> float | None:
+    """The optimizer's update alone (Adafactor), or the compression's
+    wire stage alone (compress + decompress), on gradients of ones x 1e-3
+    at the trained weights: CUDA events, median of OPT_TIMING_REPS."""
+    from repro_torch.dist.compress import compress, compress_init, decompress
+    grads = _tree(params, lambda t: torch.full_like(t, 1e-3))
+    if name == "adafactor":
+        opt = get_optimizer("adafactor")
+        state = opt.init(params)
+        fn = lambda: opt.update(grads, state, params, 1e-9)  # noqa: E731
+    elif name == "int8":
+        res = compress_init(params)
+        fn = lambda: decompress(compress(grads, res)[0])  # noqa: E731
+    else:
+        return None
+    ms = median_ms(fn, reps=OPT_TIMING_REPS, warm=1)
+    del grads, fn
+    gc.collect()
+    torch.cuda.empty_cache()
+    return ms
+
+
+def features_full(dev) -> dict:
+    """(c) item 25 at gemma-2b's full width on one card, at full depth
+    but where FEATURE_LAYERS cuts it: Adafactor, int8 compression and
+    two microbatches, each MESH_STEPS steps of the launcher's loop;
+    losses finite; peak memory, step wall and the update's (or the wire
+    stage's) ms."""
+    out = {}
+    for name, over in FEATURES.items():
+        cfg = get_config(ARCH)
+        if name in FEATURE_LAYERS:
+            cfg = dataclasses.replace(cfg, n_layers=FEATURE_LAYERS[name])
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        params = LM.init_params(cfg, torch.Generator(dev).manual_seed(SEED),
+                                dev)
+        task = CharLMTask(vocab=min(cfg.vocab, 256), seed=0)
+        tcfg = TrainConfig(lr=TRAIN_LR, steps=MESH_STEPS, log_every=10 ** 9,
+                           **over)
+        params, hist = train(
+            lambda q, b: LM.forward_loss(q, b, cfg), params,
+            sharded_batches(lm_batch_iterator(task, TRAIN_BATCH, TRAIN_SEQ),
+                            device=dev), tcfg,
+            lr_schedule=linear_warmup_cosine(TRAIN_LR, TRAIN_WARMUP,
+                                             MESH_STEPS),
+            log=lambda *_: None)
+        peak = torch.cuda.max_memory_allocated() - base
+        losses = [h["loss"] for h in hist]
+        if len(hist) != MESH_STEPS or not all(map(math.isfinite, losses)):
+            raise AssertionError(f"(c) {ARCH} {name}: losses {losses}")
+        ms = feature_timing(name, params)
+        out[name] = {"losses": losses, "peak_gb": peak / 1e9,
+                     "layers": cfg.n_layers,
+                     "step_p50_ms": _p50(hist),
+                     "step_ms": [h["dt"] * 1e3 for h in hist], "ms": ms}
+        what = {"adafactor": "Adafactor's update alone",
+                "int8": "compress + decompress alone"}.get(name)
+        print(f"  (c) {ARCH} full width, {cfg.n_layers} layers, {name} "
+              f"({over}), {MESH_STEPS} steps on one card: losses {[round(v, 4) for v in losses]}; "
+              f"peak {peak / 1e9:.2f} GB; steps 1..{MESH_STEPS - 1} wall "
+              f"p50 {out[name]['step_p50_ms']:.1f} ms"
+              + (f"; {what} {ms:.2f} ms" if what else ""))
+        del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def features_reduced(dev) -> dict:
+    """(c) item 25 at the reduced width: each feature trained on the card
+    and on the CPU from the same weights and batches, [phase train] (c)'s
+    bound."""
+    cfg = get_reduced(ARCH)
+    params = LM.init_params(cfg, torch.Generator().manual_seed(SEED), "cpu")
+    out = {}
+    for name, over in FEATURES.items():
+        task = CharLMTask(vocab=min(cfg.vocab, 256), seed=0)
+        runs = {}
+        for d in ("cpu", dev):
+            tcfg = TrainConfig(lr=TRAIN_LR, steps=REDUCED_STEPS,
+                               log_every=10 ** 9, **over)
+            _, hist = train(lambda q, b: LM.forward_loss(q, b, cfg),
+                            _copy(params, d),
+                            lm_batch_iterator(task, TRAIN_BATCH, TRAIN_SEQ),
+                            tcfg, log=lambda *_: None)
+            runs[str(d)] = [h["loss"] for h in hist]
+        diffs = [abs(a - b) for a, b in zip(runs["cpu"], runs[str(dev)])]
+        if len(diffs) != REDUCED_STEPS or max(diffs) > REDUCED_LOSS_TOL:
+            raise AssertionError(f"(c) reduced {ARCH} {name}: card vs CPU "
+                                 f"{diffs} (bound {REDUCED_LOSS_TOL})")
+        out[name] = max(diffs)
+        print(f"  (c) reduced {ARCH}, {name}: card {max(diffs):.3e} from "
+              f"the CPU over {REDUCED_STEPS} steps (bound "
+              f"{REDUCED_LOSS_TOL})")
+    return out
+
+
+def mesh_train_phase(dev, one_card: list[float]) -> dict:
+    """Training on the dense placements: (a) gemma-2b at full width on a
+    1x2 mesh through the launcher, (b) reduced meshes against the CPU,
+    (c) Adafactor, compression and microbatches on one card. No kernel of
+    the port runs here (its launch counts must not move)."""
+    start = (csb_mvm.LAUNCHES, paged_attn.LAUNCHES, csb_sharded.LAUNCHES)
+    t = [time.perf_counter()]
+    full = mesh_full(one_card)
+    full["state"] = mesh_state()
+    t.append(time.perf_counter())
+    red = mesh_reduced()
+    t.append(time.perf_counter())
+    feats = features_full(dev)
+    feats_red = features_reduced(dev)
+    t.append(time.perf_counter())
+    end = (csb_mvm.LAUNCHES, paged_attn.LAUNCHES, csb_sharded.LAUNCHES)
+    if end != start:
+        raise AssertionError(f"kernel launches (B1, B2, B3) in the "
+                             f"mesh-train phase: {start} -> {end}")
+    secs = [b - a for a, b in zip(t, t[1:])]
+    print(f"  mesh-train phase: (a) {secs[0]:.1f} s, (b) {secs[1]:.1f} s, "
+          f"(c) {secs[2]:.1f} s; card {card_line()}")
+    out = {"full": full, "reduced": red, "features": feats,
+           "features_reduced": feats_red, "part_s": secs}
+    print(json.dumps({"mesh_train": out}))
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA device; none is available",
@@ -3885,6 +4289,8 @@ def main() -> int:
     pp = phase("paper", paper_phase, dev, frames, sl, ffn)
     sh = phase("sharded", sharded_phase, dev, layers, frames, ffn)
     tr = phase("train", train_phase, dev)
+    phase("mesh-train", mesh_train_phase, dev,
+          tr["full"]["losses"][:MESH_STEPS])
     print(f"[total {time.perf_counter() - t_start:.1f} s]")
     print(json.dumps({"kernels": [{
         **KERNEL, "launches": (sl["launches"] + pp["launches"]

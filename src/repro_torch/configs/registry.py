@@ -1,16 +1,15 @@
 """Architecture registry: ``--arch <id>`` resolution.
 
-A copy of the parts of ``repro.configs.registry`` that need no JAX:
-``get_config``, ``get_reduced``, ``ARCH_IDS``, ``cell_is_runnable`` and
-``train_microbatches``. ``sharding_policy`` needs the multi-device
-rules (``dist.rules``) and waits for ROADMAP item 20;
-``shape_overrides`` and ``all_cells`` come with the launch tooling
-(item 23).
+A copy of ``repro.configs.registry``'s ``get_config``, ``get_reduced``,
+``ARCH_IDS``, ``cell_is_runnable``, ``sharding_policy`` and
+``train_microbatches``. ``shape_overrides`` and ``all_cells`` come with
+the launch tooling (ROADMAP item 23).
 """
 from __future__ import annotations
 
 import importlib
 
+from repro_torch.dist.rules import ShardingPolicy
 from repro_torch.models.config import SUBQUADRATIC, ModelConfig, reduced
 
 _MODULES = {
@@ -44,6 +43,17 @@ def cell_is_runnable(arch: str, shape: str) -> bool:
     if shape == "long_500k":
         return cfg.mixer in SUBQUADRATIC
     return True
+
+
+def sharding_policy(arch: str, shape: str) -> ShardingPolicy:
+    """Per-cell distribution policy."""
+    cfg = get_config(arch)
+    big = cfg.param_count() > 3e10          # 30B+ -> FSDP weights
+    # SP (shard saved residuals over model) saves memory but conflicts
+    # with MoE token grouping (regrouping seq-sharded tokens): MoE archs
+    # run without SP (their d_model keeps residuals affordable).
+    seq = shape == "train_4k" and cfg.ffn != "moe"
+    return ShardingPolicy(fsdp=big, seq_shard=seq, shard_cache_seq=True)
 
 
 def train_microbatches(arch: str) -> int:

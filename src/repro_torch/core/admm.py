@@ -17,7 +17,9 @@ untouched — the paper prunes weight matrices only.
 the penalty in ``W`` alone. Each step keeps the JAX package's dtypes:
 ``admm_init`` projects ``W`` in its own dtype, the penalty, the update
 and the residual work on ``W`` in fp32, and ``admm_finalize`` casts back
-to ``W``'s dtype.
+to ``W``'s dtype. On a mesh (DTensor weights) each projection takes
+the whole matrix (``full_tensor()``) and its result is placed as ``W``
+is; the penalty and the dual update run on each rank's shard.
 """
 from __future__ import annotations
 
@@ -78,11 +80,19 @@ def _total(terms: PyTree):
     return torch.as_tensor(total)
 
 
+def _project(w, spec: CSBSpec):
+    """The CSB projection of the whole matrix ``w``, placed as ``w`` is
+    (a DTensor's shards alone are not the matrix the pattern is chosen
+    on)."""
+    from repro_torch.dist.api import like, whole
+    return like(csb_project(whole(w), spec), w)
+
+
 def admm_init(params: PyTree, specs: PyTree, rho: float = 1e-3) -> ADMMState:
     """specs mirrors ``params`` with CSBSpec leaves (None = not pruned)."""
     with torch.no_grad():
         z = spec_tree_map(
-            lambda s, w: csb_project(w.detach(), s) if _is_spec(s) else None,
+            lambda s, w: _project(w.detach(), s) if _is_spec(s) else None,
             specs, params)
         u = spec_tree_map(
             lambda s, w: torch.zeros_like(w) if _is_spec(s) else None,
@@ -111,7 +121,7 @@ def admm_update(params: PyTree, state: ADMMState,
     def proj(s, w, u):
         if not _is_spec(s):
             return None
-        return csb_project(w.detach().to(torch.float32) + u, s)
+        return _project(w.detach().to(torch.float32) + u, s)
 
     def dual(s, w, z_, u):
         if not _is_spec(s):
@@ -132,7 +142,7 @@ def admm_finalize(params: PyTree, specs: PyTree) -> PyTree:
     def fin(s, w):
         if not _is_spec(s):
             return w
-        return csb_project(w.detach(), s).to(w.dtype)
+        return _project(w.detach(), s).to(w.dtype)
 
     with torch.no_grad():
         return spec_tree_map(fin, specs, params)
@@ -148,6 +158,7 @@ def residual_norm(params: PyTree, state: ADMMState,
         d = w.detach().to(torch.float32) - z
         return torch.sum(d * d)
 
+    from repro_torch.dist.api import whole
     with torch.no_grad():
-        return torch.sqrt(_total(spec_tree_map(term, specs, params,
-                                               state.z)))
+        return torch.sqrt(whole(_total(spec_tree_map(term, specs, params,
+                                                     state.z))))

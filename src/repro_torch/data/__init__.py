@@ -3,8 +3,8 @@ pipeline.
 
 ``synthetic``: copies of ``repro.data.synthetic`` (numpy), per-(seed,
 step) batches, the same in both packages. ``pipeline``: ``Prefetcher``
-(copied) and ``sharded_batches``, which puts each batch on the device
-(one device; a mesh waits for ROADMAP item 20).
+(copied) and ``sharded_batches``, which puts each batch on the device,
+or on a mesh as DTensors on ``dist.rules.batch_specs``' placements.
 """
 from .pipeline import Prefetcher, sharded_batches
 from .synthetic import (

@@ -5,7 +5,11 @@ queue, the classic straggler absorber: a slow host-side batch generation
 step does not stall the card as long as the queue has depth (copied).
 ``sharded_batches`` puts each numpy batch on the device, so the train
 step consumes tensors already there (no implicit transfer inside the
-step). A mesh's batch placement waits for ROADMAP item 20.
+step); on a mesh each array becomes a DTensor on the placements of its
+spec (``dist.rules.batch_specs``), the counterpart of JAX's
+``device_put`` with a ``NamedSharding``. Every rank draws the same
+batches, so each keeps its own part and nothing is communicated: the
+prefetch thread makes them without a collective.
 """
 from __future__ import annotations
 
@@ -16,6 +20,7 @@ from typing import Any, Iterator
 import torch
 
 from repro_torch._device import resolve_device
+from repro_torch.dist.api import NamedSharding, P, place, to_placements
 
 
 class Prefetcher:
@@ -53,18 +58,24 @@ def sharded_batches(it: Iterator[dict], mesh=None, specs=None,
                     prefetch: int = 2, device=None):
     """Wrap a (step, batch) iterator: each batch's arrays as tensors on
     ``device`` (``None`` means the card), made in the prefetch thread.
-    With a mesh it raises: the batch placement over a mesh's "data" axis
-    (JAX's ``NamedSharding`` of ``batch_specs``) waits for ROADMAP item
-    20."""
-    if mesh is not None or specs is not None:
-        raise NotImplementedError(
-            "sharded_batches over a mesh (the batch placement of "
-            "batch_specs) waits for ROADMAP item 20; pass mesh=None")
-    dev = resolve_device(device)
+    Given a ``DeviceMesh`` and ``specs`` ({key: P}; a key without one is
+    replicated), each array is a DTensor on the mesh, on the rank's own
+    device."""
+    if mesh is None or specs is None:
+        dev = resolve_device(device)
+        shardings = None
+    else:
+        dev = resolve_device(mesh.device_type)
+        shardings = {k: NamedSharding(mesh, to_placements(s, mesh))
+                     for k, s in specs.items()}
+        rep = NamedSharding(mesh, to_placements(P(), mesh))
+
+    def put(k, v):
+        t = torch.as_tensor(v).to(dev)
+        return t if shardings is None else place(t, shardings.get(k, rep))
 
     def gen():
         for step, batch in it:
-            yield step, {k: torch.as_tensor(v).to(dev)
-                         for k, v in batch.items()}
+            yield step, {k: put(k, v) for k, v in batch.items()}
 
     return Prefetcher(gen(), depth=prefetch)

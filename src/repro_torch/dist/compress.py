@@ -12,7 +12,9 @@ on that grid (half to even, as ``jnp.round``), and ``residual`` keeps the
 difference. A JAX leaf of a decoder's layers is the stack of every
 layer's tensor (``repro_torch._tree``), so one scale spans all the
 layers of a weight, as in JAX: each layer's ``Compressed`` holds its own
-int8 codes and that shared scale.
+int8 codes and that shared scale. On a mesh the gradients, residuals and
+codes are DTensors on the params' placements, and a leaf's max is taken
+over the whole leaf (each shard's max reduced over the mesh).
 """
 from __future__ import annotations
 
@@ -21,6 +23,7 @@ from typing import Any, NamedTuple
 import torch
 
 from repro_torch import _tree
+from repro_torch.dist.api import whole
 
 PyTree = Any
 F32 = torch.float32
@@ -37,15 +40,14 @@ class Compressed(NamedTuple):
 def compress_init(tree: PyTree) -> PyTree:
     """Zero error-feedback residuals shaped like the gradient tree."""
     return _tree.map_leaves(
-        lambda ps: [torch.zeros(g.shape, dtype=F32, device=g.device)
-                    for g in ps], tree)
+        lambda ps: [torch.zeros_like(g, dtype=F32) for g in ps], tree)
 
 
 def _compress_leaf(gs: list, rs: list):
     es = [g.to(F32) + r for g, r in zip(gs, rs)]
-    amax = es[0].abs().max()
+    amax = whole(es[0].abs().max())
     for e in es[1:]:
-        amax = torch.maximum(amax, e.abs().max())
+        amax = torch.maximum(amax, whole(e.abs().max()))
     scale = amax / 127.0
     div = torch.clamp(scale, min=1e-30)
     comp, res = [], []

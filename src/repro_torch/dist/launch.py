@@ -6,14 +6,18 @@ starts the ranks with ``torch.multiprocessing.start_processes`` and the
 "spawn" start method (CUDA does not survive a fork), joins them into one
 process group through a file store in a fresh temporary directory (so
 concurrent callers never share a rendezvous), builds the ("data",
-"model") ``DeviceMesh`` and calls ``fn(mesh, *args)`` on every rank. It
-returns the ranks' results in rank order.
+"model") ``DeviceMesh`` (("pod", "data", "model") for a shape of three
+axes, as JAX's launcher names them) and calls ``fn(mesh, *args)`` on
+every rank. It returns the ranks' results in rank order.
 
 Cards and backends: the mesh lies on the card unless the caller passes
-``device="cpu"``. Rank r uses card ``r % device_count``. When every rank
-has a card of its own the ranks use NCCL; when ranks share a card (NCCL
-refuses two ranks on one card) they exchange over gloo, which also takes
-CUDA tensors, staged through the host. Ranks on the CPU use gloo.
+``device="cpu"`` (ranks on the CPU then share the host's cores: each
+runs its share of them as intra-op threads). Rank r uses card
+``r % device_count``. When every rank has a card of its own the ranks
+use NCCL; when ranks share a card (NCCL refuses two ranks on one card)
+they exchange over gloo, which also takes CUDA tensors, staged through
+the host; there DTensor's collectives run as c10d's synchronous ones
+(``dist.gloo_cuda``). Ranks on the CPU use gloo.
 
 A rank that raises fails the call with that rank's traceback, and the
 other ranks are stopped. Where several ranks failed (a peer of the rank
@@ -48,6 +52,9 @@ from torch.multiprocessing import (
 
 from repro_torch._device import resolve_device
 
+# the mesh axes of a shape, by its length (JAX's ``launch/train.py``)
+AXES = {2: ("data", "model"), 3: ("pod", "data", "model")}
+
 # how long every rank may take to boot (spawn, import torch, join the
 # group) before the call fails; ``fn``'s deadline starts after it
 BOOT_S = 300.0
@@ -59,6 +66,9 @@ def _rank_main(rank: int, world: int, mesh_shape, device_type: str,
     try:
         if device_type == "cuda":
             torch.cuda.set_device(rank % cards)
+        else:
+            # the ranks share the host's cores
+            torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
         # the job comes through a file: a large pickle through the start
         # pipe would hold each start() until its rank has booted
         fn, args = torch.load(f"{workdir}/job.pt", weights_only=False)
@@ -66,9 +76,13 @@ def _rank_main(rank: int, world: int, mesh_shape, device_type: str,
             backend, init_method=f"file://{workdir}/store", rank=rank,
             world_size=world,
             timeout=datetime.timedelta(seconds=group_timeout_s))
+        if device_type == "cuda" and backend == "gloo":
+            # gloo's CUDA work crashes under the functional collectives
+            from repro_torch.dist.gloo_cuda import use_sync_collectives
+            use_sync_collectives("CUDA")
         from torch.distributed.device_mesh import init_device_mesh
         mesh = init_device_mesh(device_type, tuple(mesh_shape),
-                                mesh_dim_names=("data", "model"))
+                                mesh_dim_names=AXES[len(mesh_shape)])
         open(f"{workdir}/joined{rank}", "w").close()
         out = fn(mesh, *args)
         torch.save(out, f"{workdir}/result{rank}.pt")
@@ -152,14 +166,17 @@ def _wait(ctx, world: int, limit_s: float, what: str, workdir: str,
                                f"after {limit_s:.0f} s")
 
 
-def spawn_ranks(fn, mesh_shape: tuple[int, int], *args,
+def spawn_ranks(fn, mesh_shape: tuple[int, ...], *args,
                 device: str | torch.device | None = None,
                 timeout_s: float = 120.0) -> list:
     """``fn(mesh, *args)`` on each rank of a ("data", "model") mesh of
-    ``mesh_shape``; returns their results in rank order. The mesh lies on
-    the card (``device=None``; raises without CUDA) unless ``device`` is
-    "cpu". Every rank must join the group within ``BOOT_S``; ``fn`` then
+    ``mesh_shape`` (("pod", "data", "model") for three axes); returns
+    their results in rank order. The mesh lies on the card
+    (``device=None``; raises without CUDA) unless ``device`` is "cpu".
+    Every rank must join the group within ``BOOT_S``; ``fn`` then
     has ``timeout_s`` from the moment the last rank joined."""
+    if len(mesh_shape) not in AXES:
+        raise ValueError(f"mesh shape {mesh_shape}: two or three axes")
     dev = resolve_device(device)
     world = math.prod(mesh_shape)
     cards = torch.cuda.device_count() if dev.type == "cuda" else 0

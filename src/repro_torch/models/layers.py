@@ -13,8 +13,19 @@ a low-precision product, the port casts the operands to fp32 first:
 a product of two bf16 values is exact in fp32, so only the summation
 order differs.
 
-The JAX package pins layouts with ``shard(...)``/``replicated()`` to work
-around XLA:CPU SPMD miscompiles; the port has no mesh and drops them.
+Layouts on a mesh: the call sites of the training path tag activations
+with JAX's logical names through ``dist.api.shard``, at JAX's
+positions ("attn_q"/"attn_kv" before rope, the "moe_*" streams,
+"ssd_inner" with ``fallback="replicate"``); each is the identity on a
+plain tensor and outside a mesh, and on a DTensor it redistributes.
+The serve-only sites (caches, pages, the prompt pass's replicated MLA
+concats, the decode pins) wait for serving on a mesh (ROADMAP item
+22). Where DTensor's own op strategies are wrong or missing (torch
+2.11's flip, pad, a reshape inside an einsum; a cumsum along a split
+dim), the work runs on each rank's part with the dims it
+works along whole (``dist.api.along``, ``run_local``): the attention
+per batch row and head, the SSD scan per batch row, MoE's dispatch
+positions, every pad.
 The cache primitives write in place (``_cache_write``, ``paged_write``),
 where JAX returns a new array: it saves a copy of the whole cache per
 layer and step; so do the SSD decode's per-slot states (``ssd_step``).
@@ -25,6 +36,10 @@ import math
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.dist.api import (
+    along, is_dtensor, pad, run_local, shard,
+)
 
 from .config import ModelConfig
 
@@ -51,12 +66,9 @@ def csb_dense(x: torch.Tensor, lin) -> torch.Tensor:
     of :func:`dense`. A frozen weight runs the CSB-MVM kernel (its plain
     version on the CPU); under a ``use_rules`` mesh with a "model" axis
     larger than 1 its block grid is partitioned over that axis and run
-    through kernel B3 (``core.CSBLinear``).
-
-    The JAX package also tags the output with the "residual" layout;
-    activation layouts wait for the port's sharded dense layers (ROADMAP
-    item 20), so none is applied here."""
-    return lin(x).to(x.dtype)
+    through kernel B3 (``core.CSBLinear``). The output carries the
+    "residual" layout, as in JAX."""
+    return shard(lin(x).to(x.dtype), "residual")
 
 
 # ---------------------------------------------------------------------------
@@ -137,7 +149,12 @@ def blockwise_attention(
     """Online-softmax attention; memory O(S * chunk). Returns (B,S,H,Dv).
 
     The same chunking, padding and rescaling as the JAX package's two
-    nested ``lax.scan``s, written as two Python loops."""
+    nested ``lax.scan``s, written as two Python loops. On a mesh it runs
+    on each rank's batch rows and heads (:func:`_attention_local`)."""
+    if is_dtensor(q):
+        return _attention_local(q, k, v, q_offset=q_offset, causal=causal,
+                                window=window, q_chunk=q_chunk,
+                                kv_chunk=kv_chunk)
     b, s, h, d = q.shape
     t = k.shape[1]
     kv = k.shape[2]
@@ -148,9 +165,9 @@ def blockwise_attention(
     kv_chunk = min(kv_chunk, t)
     sp = -(-s // q_chunk) * q_chunk
     tp = -(-t // kv_chunk) * kv_chunk
-    qp = F.pad(q, (0, 0, 0, 0, 0, sp - s))
-    kp = F.pad(k, (0, 0, 0, 0, 0, tp - t))
-    vp = F.pad(v, (0, 0, 0, 0, 0, tp - t))
+    qp = pad(q, (0, 0, 0, 0, 0, sp - s))
+    kp = pad(k, (0, 0, 0, 0, 0, tp - t))
+    vp = pad(v, (0, 0, 0, 0, 0, tp - t))
     nq, nk = sp // q_chunk, tp // kv_chunk
     rep = h // kv
     outs = []
@@ -183,6 +200,39 @@ def blockwise_attention(
         outs.append(o.permute(0, 3, 1, 2, 4).reshape(b, q_chunk, h, dv)
                     .to(q.dtype))
     return torch.cat(outs, dim=1)[:, :s]
+
+
+def _attention_local(q, k, v, **kw):
+    """:func:`blockwise_attention` on DTensors, on each rank's part:
+    attention is independent per batch row and per head, so where q's
+    batch dim is split k and v are split alike, where q's heads are split
+    k's and v's heads follow (or stay whole when there is one KV head,
+    which every q head reads), and every other split or partial sum is
+    made whole. Each rank's q heads then meet their own KV heads (q head
+    j of a part reads KV head j // rep of that part, as on one device).
+    DTensor's own einsums here fail in torch 2.11 (a reshape that would
+    merge a split dim)."""
+    from torch.distributed.tensor import Replicate, Shard
+    n_kv = k.shape[2]
+    mesh = q.device_mesh
+    pq, pkv = [], []
+    for i, p in enumerate(q.placements):
+        size = mesh.size(i)
+        if p.is_shard() and p.dim % q.ndim == 0:
+            pq.append(Shard(0))
+            pkv.append(Shard(0))
+        elif p.is_shard() and p.dim % q.ndim == 2 and n_kv == 1:
+            pq.append(Shard(2))
+            pkv.append(Replicate())
+        elif p.is_shard() and p.dim % q.ndim == 2 and n_kv % size == 0:
+            pq.append(Shard(2))
+            pkv.append(Shard(2))
+        else:
+            pq.append(Replicate())
+            pkv.append(Replicate())
+    pq, pkv = tuple(pq), tuple(pkv)
+    return run_local(lambda a, b, c: blockwise_attention(a, b, c, **kw),
+                     (q, k, v), (pq, pkv, pkv), pq)
 
 
 def context_attention(q, k, v, ctx_k, ctx_v, start: int, *, window=None):
@@ -241,9 +291,14 @@ def attn_init(gen: torch.Generator, cfg: ModelConfig, device) -> dict:
 def attn_qkv(p, x, cfg: ModelConfig, pos):
     b, s, _ = x.shape
     hd, nh, nkv = cfg.hd, cfg.n_heads, cfg.n_kv
-    q = dense(x, p["wq"]).reshape(b, s, nh, hd)
-    k = dense(x, p["wk"]).reshape(b, s, nkv, hd)
-    v = dense(x, p["wv"]).reshape(b, s, nkv, hd)
+    # fallback="replicate" on all three, JAX's pins: q/k/v do not keep
+    # the projection weight's output-dim split through the reshape
+    q = shard(dense(x, p["wq"]).reshape(b, s, nh, hd), "attn_q",
+              fallback="replicate")
+    k = shard(dense(x, p["wk"]).reshape(b, s, nkv, hd), "attn_kv",
+              fallback="replicate")
+    v = shard(dense(x, p["wv"]).reshape(b, s, nkv, hd), "attn_kv",
+              fallback="replicate")
     if cfg.qk_norm:
         q = rmsnorm(q, p["q_norm"])
         k = rmsnorm(k, p["k_norm"])
@@ -456,11 +511,14 @@ def _mla_qkv(p, x, cfg: ModelConfig, pos):
     qa = rmsnorm(dense(x, p["wq_a"]), p["q_norm"])
     qb = dense(qa, p["wq_b"]).reshape(b, s, nh, hd + rd)
     q_nope = qb[..., :hd]
-    q_rope = apply_rope(qb[..., hd:], pos, cfg.rope_theta)
+    # same rope layout pins as attn_qkv
+    q_rope = shard(qb[..., hd:], "attn_q", fallback="replicate")
+    q_rope = apply_rope(q_rope, pos, cfg.rope_theta)
     kva = dense(x, p["wkv_a"])
     c_kv = rmsnorm(kva[..., :cfg.kv_lora], p["kv_norm"])
-    k_rope = apply_rope(kva[..., cfg.kv_lora:].reshape(b, s, 1, rd), pos,
-                        cfg.rope_theta)
+    k_rope = shard(kva[..., cfg.kv_lora:].reshape(b, s, 1, rd), "attn_kv",
+                   fallback="replicate")
+    k_rope = apply_rope(k_rope, pos, cfg.rope_theta)
     return q_nope, q_rope, c_kv, k_rope
 
 
@@ -694,20 +752,24 @@ def moe_apply(p, x, cfg: ModelConfig):
     t = xt.shape[0]
     chunk = min(cfg.moe_chunk, t)
     tp = -(-t // chunk) * chunk
-    xt = F.pad(xt, (0, 0, 0, tp - t))
+    xt = pad(xt, (0, 0, 0, tp - t))
     g = tp // chunk
     cap = max(int(chunk * k / e * cfg.capacity_factor), 4)
     cd = x.dtype
     dev = x.device
 
-    xg = xt.reshape(g, chunk, d)
+    xg = shard(xt.reshape(g, chunk, d), "moe_groups")       # (G, C, d)
     logits = dense(xg.to(F32), p["router"])                 # (G, C, E)
     gate_vals, idx = _top_k(_softmax(logits), k)            # (G, C, k)
     gate_vals = gate_vals / torch.clamp(
         gate_vals.sum(-1, keepdim=True), min=1e-9)
     onehot = F.one_hot(idx, e).to(F32)                      # (G, C, k, E)
     flat = onehot.reshape(g, chunk * k, e)
-    pos = (torch.cumsum(flat, dim=1) - flat).reshape(g, chunk, k, e)
+    # a chunk's tokens whole on each rank: with G too small to split
+    # over the data axes, the token dim C carries the batch's split, and
+    # DTensor's cumsum has been seen to count each shard's tokens alone
+    pos = along(flat, 1, lambda t: torch.cumsum(t, dim=1) - t)
+    pos = pos.reshape(g, chunk, k, e)
     keep = (pos < cap) & (onehot > 0)
     slots = torch.arange(cap, device=dev)
     disp = torch.zeros((g, chunk, e, cap), dtype=cd, device=dev)
@@ -720,14 +782,18 @@ def moe_apply(p, x, cfg: ModelConfig):
         d_k = sel[..., None] * p_oh                         # (G, C, E, cap)
         disp = disp + d_k.to(cd)
         comb = comb + (gate_vals[:, :, kk, None, None] * d_k).to(cd)
+    disp = shard(disp, "moe_dispatch")
+    comb = shard(comb, "moe_dispatch")
 
     # dispatch: each (expert, slot) row is one token or zero, exact in cd
     xe = torch.matmul(disp.reshape(g, chunk, e * cap).transpose(1, 2), xg)
-    xe = xe.reshape(g, e, cap, d).transpose(0, 1).reshape(e, g * cap, d)
+    xe = shard(xe.reshape(g, e, cap, d), "moe_experts")     # (G, E, cap, d)
+    xe = xe.transpose(0, 1).reshape(e, g * cap, d)
     h = (F.silu(_mm_f32(xe, p["w_gate"])).to(cd)
          * _mm_f32(xe, p["w_up"]).to(cd))
     ye = _mm_f32(h, p["w_down"]).to(cd)                     # (E, G*cap, d)
-    ye = ye.reshape(e, g, cap, d).transpose(0, 1).reshape(g, e * cap, d)
+    ye = shard(ye.reshape(e, g, cap, d).transpose(0, 1), "moe_experts")
+    ye = ye.reshape(g, e * cap, d)
     y = _mm_f32(comb.reshape(g, chunk, e * cap), ye)        # (G, C, d)
     y = y.reshape(tp, d)[:t].reshape(b, s, d).to(x.dtype)
     if cfg.n_shared:
@@ -815,15 +881,22 @@ def ssd_scan(x, dt, a, bmat, cmat, chunk: int):
     fp32. JAX's three-operand einsums are contracted pairwise (the
     broadcast product of all three would hold (B,C,L,L,H,P)); its
     inter-chunk ``lax.scan`` is a loop over chunks that carries an fp32
-    state and keeps the state before each chunk."""
+    state and keeps the state before each chunk. On a mesh it runs on each
+    rank's batch rows (every other dim whole): the scan is independent
+    per row, and its flips and cumulative sums along L are not DTensor's
+    to place (:func:`_rows_local`)."""
+    if is_dtensor(x):
+        return _rows_local(ssd_scan, (x, dt, a, bmat, cmat), (0, 0, None,
+                                                              0, 0),
+                           (0, 0), chunk=chunk)
     bsz, s, h, p_dim = x.shape
     n = bmat.shape[-1]
     sp = -(-s // chunk) * chunk
-    pad = sp - s
-    x = F.pad(x, (0, 0, 0, 0, 0, pad))
-    dt = F.pad(dt, (0, 0, 0, pad))
-    bmat = F.pad(bmat, (0, 0, 0, pad))
-    cmat = F.pad(cmat, (0, 0, 0, pad))
+    extra = sp - s
+    x = pad(x, (0, 0, 0, 0, 0, extra))
+    dt = pad(dt, (0, 0, 0, extra))
+    bmat = pad(bmat, (0, 0, 0, extra))
+    cmat = pad(cmat, (0, 0, 0, extra))
     nc = sp // chunk
 
     xr = x.reshape(bsz, nc, chunk, h, p_dim)
@@ -864,13 +937,48 @@ def ssd_scan(x, dt, a, bmat, cmat, chunk: int):
     return y.to(x.dtype), st
 
 
+def _pin(t):
+    """An SSD stream (B, S, C) on the "ssd_inner" layout: batch-parallel,
+    replicated where the batch cannot split. JAX's anchors: a weight's
+    output-dim split must not reach the conv shifts, the head reshapes
+    and the scan's cumulative sums."""
+    return shard(t, "ssd_inner", fallback="replicate")
+
+
+def _ssd_streams(p, x, cfg: ModelConfig):
+    """The in-projection's z, conv input and dt, each pinned (:func:`_pin`);
+    the conv output is pinned again (``conv_w`` is model-split on its
+    conv dim)."""
+    return tuple(_pin(t) for t in _ssd_in_proj(p, x, cfg))
+
+
+def _rows_local(fn, args, batch_dims, out_batch_dims, **kw):
+    """``fn(*args, **kw)`` on each rank's batch rows: on every mesh dim
+    where the first argument's batch dim is split, each argument with a
+    batch dim (``batch_dims``: its index, or None) is split there too;
+    every other dim of every argument whole. The results' batch dims
+    (``out_batch_dims``) keep the split. For an ``fn`` independent per
+    batch row."""
+    from torch.distributed.tensor import Replicate, Shard
+    lead = args[0]
+    split = [p.is_shard() and p.dim % lead.ndim == batch_dims[0]
+             for p in lead.placements]
+
+    def pls(bd):
+        return tuple(Shard(bd) if s and bd is not None else Replicate()
+                     for s in split)
+    return run_local(lambda *t: fn(*t, **kw), args,
+                     [pls(bd) for bd in batch_dims],
+                     tuple(pls(bd) for bd in out_batch_dims))
+
+
 def _ssd_conv(conv_in, cw, k: int):
     """Causal depthwise conv via k shifted adds, summed in x's dtype in
     JAX's order (k is tiny)."""
     s = conv_in.shape[1]
     conv = 0
     for i in range(k):
-        conv = conv + F.pad(conv_in, (0, 0, k - 1 - i, 0))[:, :s] * cw[i]
+        conv = conv + pad(conv_in, (0, 0, k - 1 - i, 0))[:, :s] * cw[i]
     return conv
 
 
@@ -879,6 +987,7 @@ def _ssd_out(p, z, xh, y, x, cfg: ModelConfig):
     bsz, s = x.shape[:2]
     y = y + xh.to(F32) * p["d_skip"][None, None, :, None]
     y = y.reshape(bsz, s, cfg.d_inner).to(x.dtype)
+    y = shard(y, "ssd_inner", fallback="replicate")
     y = rmsnorm(y, p["out_norm"]) * _silu(z)
     return dense(y, p["w_out"])
 
@@ -898,9 +1007,9 @@ def ssd_prefill(p, x, cfg: ModelConfig):
     JAX package's ``lm._ssd_prefill`` does."""
     bsz, s, _ = x.shape
     di, n = cfg.d_inner, cfg.d_state
-    z, conv_in, dtp = _ssd_in_proj(p, x, cfg)
+    z, conv_in, dtp = _ssd_streams(p, x, cfg)
     k = cfg.conv_k
-    conv = _silu(_ssd_conv(conv_in, _ssd_conv_weight(p, cfg), k))
+    conv = _silu(_pin(_ssd_conv(conv_in, _ssd_conv_weight(p, cfg), k)))
     xc, bc, cc = torch.split(conv, [di, n, n], dim=-1)
     xh = xc.reshape(bsz, s, cfg.ssd_heads, cfg.ssd_headdim)
     a = -torch.exp(p["a_log"])                               # (H,) < 0

@@ -31,10 +31,12 @@ from __future__ import annotations
 import math
 
 import torch
-import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch._device import resolve_device
+from repro_torch.dist.api import (
+    current_rules, is_dtensor, pad, run_local, shard, use_rules,
+)
 
 from . import layers as L
 from .config import ModelConfig
@@ -127,10 +129,57 @@ def embed_tokens(params, tokens, cfg: ModelConfig) -> torch.Tensor:
     tokens = tokens.long()
     emb = params["embed"]
     if cfg.n_codebooks:
-        x = sum(emb[k][tokens[..., k]] for k in range(cfg.n_codebooks))
+        x = sum(_lookup(emb[k], tokens[..., k])
+                for k in range(cfg.n_codebooks))
     else:
-        x = emb[tokens]
-    return x.to(getattr(torch, cfg.dtype))
+        x = _lookup(emb, tokens)
+    return shard(x.to(getattr(torch, cfg.dtype)), "residual")
+
+
+def _lookup(table, tokens):
+    """``table[tokens]``. On a mesh each rank looks up its own rows of a
+    vocab-split table (megatron's vocab-parallel embedding): a token
+    outside them gives zeros, and the parts are a partial sum over the
+    ranks that split the vocab, which the next op reduces. DTensor's own
+    lookups break in torch 2.11: the backward of an index fails to place
+    its index_put on a three-axis mesh, and ``F.embedding``'s masked
+    partial result fails to reduce after a checkpointed layer."""
+    if not is_dtensor(table):
+        return table[tokens]
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    mesh = table.device_mesh
+    coord = mesh.get_coordinate()
+    tok_split = [is_dtensor(tokens) and p.is_shard() and p.dim == 0
+                 for p in (tokens.placements if is_dtensor(tokens)
+                           else [None] * mesh.ndim)]
+    pt, ptok, pout = [], [], []
+    parts, index = 1, 0
+    for i, p in enumerate(table.placements):
+        if p.is_shard() and p.dim % 2 == 0:          # the vocab split
+            pt.append(Shard(0))
+            ptok.append(Replicate())
+            pout.append(Partial())
+            index = index * mesh.size(i) + coord[i]
+            parts *= mesh.size(i)
+            continue
+        # a d split over the mesh dim that splits the tokens' batch
+        # (FSDP's "data") cannot show in the output beside the batch
+        # split: the table is made whole on that dim
+        d_split = p.is_shard() and not tok_split[i]
+        pt.append(Shard(1) if d_split else Replicate())
+        ptok.append(Shard(0) if tok_split[i] else Replicate())
+        pout.append(Shard(tokens.ndim) if d_split
+                    else Shard(0) if tok_split[i] else Replicate())
+    rows = table.shape[0] // parts
+    lo = index * rows
+
+    def look(t, tab):
+        ids = t - lo
+        ok = (ids >= 0) & (ids < rows)
+        return tab[ids.clamp(0, rows - 1)] * ok[..., None].to(tab.dtype)
+
+    return run_local(look, (tokens, table), (tuple(ptok), tuple(pt)),
+                     tuple(pout))
 
 
 def head_weight(params, cfg: ModelConfig) -> torch.Tensor:
@@ -179,16 +228,25 @@ def layer_apply(lp, x, cfg: ModelConfig, window=None):
         mix = L.hybrid_apply(lp["mixer"], h, cfg, window=window)
     else:  # pragma: no cover
         raise ValueError(cfg.mixer)
-    return _ffn(lp, x + mix, cfg)
+    return shard(_ffn(lp, x + mix, cfg), "residual")
+
+
+def _layer_under(rules, lp, x, cfg, window):
+    """:func:`layer_apply` under ``rules``: autograd recomputes a
+    checkpointed layer in its own thread for a device's work, where the
+    caller's ``use_rules`` scope is not active."""
+    with use_rules(rules):
+        return layer_apply(lp, x, cfg, window)
 
 
 def backbone(params, x, cfg: ModelConfig, window=None):
     """x: (B, S, d) embeddings -> final hidden states. With ``cfg.remat``
     each layer is checkpointed (``jax.checkpoint`` on JAX's scan body):
     backward keeps only each layer's input and runs the layer again."""
+    rules = current_rules()
     for lp in params["layers"]:
         if cfg.remat:
-            x = checkpoint(layer_apply, lp, x, cfg, window,
+            x = checkpoint(_layer_under, rules, lp, x, cfg, window,
                            use_reentrant=False)
         else:
             x = layer_apply(lp, x, cfg, window)
@@ -207,9 +265,9 @@ def lm_loss(params, hidden, labels, cfg: ModelConfig):
     ck = min(cfg.logit_chunk, s)
     sp = -(-s // ck) * ck
     labels = torch.as_tensor(labels, device=hidden.device).long()
-    hp = F.pad(hidden, (0, 0, 0, sp - s))
-    pad = [0, 0] * (labels.ndim - 2) + [0, sp - s]
-    lp = F.pad(labels, pad, value=-1)
+    hp = pad(hidden, (0, 0, 0, sp - s))
+    widths = [0, 0] * (labels.ndim - 2) + [0, sp - s]
+    lp = pad(labels, widths, value=-1)
     w = head_weight(params, cfg).to(F32)
     loss_sum = torch.zeros((), dtype=F32, device=hidden.device)
     count = torch.zeros((), dtype=torch.int64, device=hidden.device)
@@ -219,6 +277,7 @@ def lm_loss(params, hidden, labels, cfg: ModelConfig):
         logits = hc.to(F32) @ w
         if cfg.n_codebooks:
             logits = logits.reshape(b, ck, cfg.n_codebooks, cfg.vocab)
+        logits = shard(logits, "logits")
         if logits.shape[-1] != cfg.vocab:   # mask padded vocab rows
             idx = torch.arange(logits.shape[-1], device=logits.device)
             logits = torch.where(idx < cfg.vocab, logits,
@@ -226,13 +285,27 @@ def lm_loss(params, hidden, labels, cfg: ModelConfig):
                                               device=logits.device))
         lse = torch.logsumexp(logits, dim=-1)
         valid = lc >= 0
-        picked = torch.gather(logits, -1,
-                              torch.clamp(lc, min=0)[..., None])[..., 0]
+        picked = _picked(logits, lc)
         nll = torch.where(valid, lse - picked, torch.zeros((), dtype=F32,
                                                            device=lse.device))
         loss_sum = loss_sum + nll.sum()
         count = count + valid.sum()
     return loss_sum / torch.clamp(count, min=1)
+
+
+def _picked(logits, labels):
+    """Each label's logit (a label < 0 picks column 0; the caller masks
+    it). On a mesh it is JAX's one-hot sum, exact as the gather is (one
+    term is not 0): DTensor's gather along a split vocab leaves a masked
+    partial that a later reduction applies to a tensor of another shape
+    and raises."""
+    if is_dtensor(logits):
+        iota = torch.arange(logits.shape[-1], device=logits.device)
+        return torch.where(labels[..., None] == iota, logits,
+                           torch.zeros((), dtype=F32,
+                                       device=logits.device)).sum(-1)
+    return torch.gather(logits, -1,
+                        torch.clamp(labels, min=0)[..., None])[..., 0]
 
 
 def forward_loss(params, batch, cfg: ModelConfig, window=None):
@@ -331,7 +404,7 @@ def _prefill_layer(lp, x, cfg: ModelConfig, window, seqlen):
             ys, conv, ssm = L.ssd_prefill(mp["ssd"], h, cfg)
             mix = L.hybrid_fuse(mp, mix, ys)
             kv = {"attn": kv, "ssd": {"conv": conv, "ssm": ssm}}
-    return _ffn(lp, x + mix, cfg), kv
+    return shard(_ffn(lp, x + mix, cfg), "residual"), kv
 
 
 def prefill_partial(params, batch, ctx, cfg: ModelConfig, window=None,

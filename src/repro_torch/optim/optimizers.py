@@ -21,6 +21,14 @@ shape, so a layer's (d,) RMSNorm weight is an (L, d) leaf with factored
 statistics whose column statistic runs over the layers, and its update
 clipping takes the RMS over the whole stack. So Adafactor stacks each
 leaf's layers, and keeps its state stacked, in JAX's tree.
+
+On a mesh the params, their gradients and the state are DTensors
+(``dist.api``): the element-wise updates run on each rank's shard, the
+state of SGD and AdamW takes its param's placements, Adafactor's
+factored statistics take ``launch.shardspec.opt_state_specs``'
+placements (:func:`adafactor_state_specs`), and ``global_norm`` sums
+whole leaves (each shard's sum of squares reduced over the mesh), not a
+shard's.
 """
 from __future__ import annotations
 
@@ -30,6 +38,9 @@ from typing import Any, Callable, NamedTuple
 import torch
 
 from repro_torch import _tree
+from repro_torch.dist.api import (
+    P, is_dtensor, spec_of, to_placements, whole,
+)
 
 PyTree = Any
 F32 = torch.float32
@@ -57,7 +68,7 @@ def global_norm(tree: PyTree) -> torch.Tensor:
     for parts in _tree.leaves(tree):
         s = 0.0
         for x in parts:
-            s = s + torch.sum(torch.square(x.to(F32)))
+            s = s + whole(torch.sum(torch.square(x.to(F32))))
         total = total + s
     return torch.sqrt(torch.as_tensor(total, dtype=F32))
 
@@ -70,9 +81,9 @@ def clip_by_global_norm(grads: PyTree, max_norm: float) -> PyTree:
 
 
 def _zeros(params: PyTree, dtype) -> PyTree:
+    """Zeros shaped (and, on a mesh, placed) as each param."""
     return _tree.map_leaves(
-        lambda ps: [torch.zeros(p.shape, dtype=dtype, device=p.device)
-                    for p in ps], params)
+        lambda ps: [torch.zeros_like(p, dtype=dtype) for p in ps], params)
 
 
 def _step0(params: PyTree) -> torch.Tensor:
@@ -81,11 +92,19 @@ def _step0(params: PyTree) -> torch.Tensor:
 
 
 def _write(p: torch.Tensor, new: torch.Tensor) -> None:
-    """p <- new (fp32), rounded to p's dtype."""
+    """p <- new (fp32), rounded to p's dtype (on a mesh, ``new`` moved to
+    p's placements first)."""
+    if is_dtensor(p) and tuple(new.placements) != tuple(p.placements):
+        new = new.redistribute(p.device_mesh, p.placements)
     if p.dtype == F32:
         p.copy_(new)
     else:
         p.copy_(new.to(p.dtype))
+
+
+def _t(state) -> torch.Tensor:
+    """The step count t = step + 1 as a 0-d fp32 CPU tensor."""
+    return (whole(state.step) + 1).to(F32).cpu()
 
 
 def _pairs(*trees):
@@ -130,7 +149,7 @@ def adamw(b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
 
     @torch.no_grad()
     def update(grads, state, params, lr, weight_decay=0.0):
-        t = (state.step + 1).to(F32).cpu()
+        t = _t(state)
         c1 = 1.0 - torch.pow(torch.tensor(b1, dtype=F32), t)
         c2 = 1.0 - torch.pow(torch.tensor(b2, dtype=F32), t)
         for g, m, v, p in _pairs(grads, state.inner["m"], state.inner["v"],
@@ -162,6 +181,17 @@ def adamw(b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
 # Adafactor (factored second moment, no momentum)
 # ---------------------------------------------------------------------------
 
+def adafactor_state_specs(spec) -> dict:
+    """The specs of Adafactor's state for a (JAX, stacked) leaf of
+    ``spec``: a factored leaf's row statistic ``r`` drops the last entry,
+    its column statistic ``c`` the one before; any other keeps ``v``
+    (the JAX package's ``launch/shardspec.opt_state_specs``)."""
+    parts = tuple(spec)
+    if len(parts) >= 2:
+        return {"r": P(*parts[:-1]), "c": P(*(parts[:-2] + parts[-1:]))}
+    return {"v": P(*parts)}
+
+
 def adafactor(decay: float = 0.8, eps: float = 1e-30,
               clip_threshold: float = 1.0) -> Optimizer:
     def _factored(shape) -> bool:
@@ -172,10 +202,21 @@ def adafactor(decay: float = 0.8, eps: float = 1e-30,
             shape = ((len(parts),) if stacked else ()) + tuple(parts[0].shape)
             dev = parts[0].device
             if _factored(shape):
-                return {"r": torch.zeros(shape[:-1], dtype=F32, device=dev),
-                        "c": torch.zeros(shape[:-2] + shape[-1:], dtype=F32,
-                                         device=dev)}
-            return {"v": torch.zeros(shape, dtype=F32, device=dev)}
+                shapes = {"r": shape[:-1], "c": shape[:-2] + shape[-1:]}
+            else:
+                shapes = {"v": shape}
+            ref = parts[0]
+            if not is_dtensor(ref):
+                return {k: torch.zeros(sh, dtype=F32, device=dev)
+                        for k, sh in shapes.items()}
+            from torch.distributed.tensor import zeros as dzeros
+            mesh = ref.device_mesh
+            spec = spec_of(ref.placements, ref.ndim, mesh)
+            specs = adafactor_state_specs(
+                P(None, *spec) if stacked else spec)
+            return {k: dzeros(sh, dtype=F32, device_mesh=mesh,
+                              placements=to_placements(specs[k], mesh))
+                    for k, sh in shapes.items()}
 
         return OptState(inner=_tree.jax_structure(params, one),
                         step=_step0(params))
@@ -185,7 +226,7 @@ def adafactor(decay: float = 0.8, eps: float = 1e-30,
 
     @torch.no_grad()
     def update(grads, state, params, lr, weight_decay=0.0):
-        t = (state.step + 1).to(F32).cpu()
+        t = _t(state)
         beta = 1.0 - torch.pow(t + 1.0, -decay)
         for g_parts, s, (p_parts, stacked) in zip(
                 _tree.leaves(grads), _state_leaves(state.inner),
@@ -197,11 +238,11 @@ def adafactor(decay: float = 0.8, eps: float = 1e-30,
                 c = beta * s["c"] + (1 - beta) * g2.mean(-2)
                 rc = r / torch.clamp(r.mean(-1, keepdim=True), min=1e-30)
                 vhat = rc[..., None] * c[..., None, :]
-                s["r"].copy_(r)
-                s["c"].copy_(c)
+                _write(s["r"], r)
+                _write(s["c"], c)
             else:
                 vhat = beta * s["v"] + (1 - beta) * g2
-                s["v"].copy_(vhat)
+                _write(s["v"], vhat)
             u = g * torch.rsqrt(vhat + eps)
             # update clipping (RMS), over the whole stacked leaf
             rms = torch.sqrt(torch.mean(u * u))

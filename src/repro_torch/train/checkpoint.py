@@ -13,8 +13,15 @@ sorted (so ``"opt"`` comes before ``"params"``), ``OptState`` as (inner,
 step), and a decoder's layers stacked on a leading L axis, as the JAX
 package holds them. So a checkpoint written by ``repro.train.checkpoint``
 restores here and the reverse: ``restore`` checks the leaf count, the
-shapes and the hashes, not the treedef string (which differs). Arrays
-are saved unsharded and restored onto the device of ``like``'s leaves.
+shapes and the hashes, not the treedef string (which differs).
+
+Arrays are saved unsharded: a tree of DTensors (a mesh run) is gathered
+whole on every rank (a collective: every rank calls ``save``), rank 0
+alone writes, and the ranks meet at a barrier before any goes on. So a
+run restores onto any mesh: ``restore`` places each leaf on its
+``shardings`` entry (a ``dist.api.NamedSharding``, as
+``launch.shardspec.to_named`` gives), or, without ``shardings``, as
+``like``'s leaf is placed (a plain leaf on its device).
 """
 from __future__ import annotations
 
@@ -28,6 +35,7 @@ import numpy as np
 import torch
 
 from repro_torch import _tree
+from repro_torch.dist.api import NamedSharding, is_dtensor, place, whole
 
 PyTree = Any
 
@@ -59,17 +67,39 @@ def _treedef(tree: PyTree) -> str:
     return walk(tree)
 
 
+def _whole_leaves(tree: PyTree) -> tuple[list, bool]:
+    """JAX's arrays of ``tree`` (each whole), and whether any was a
+    DTensor (gathered from the ranks)."""
+    arrays, gathered = [], False
+    for parts, st in _tree.walk(tree):
+        gathered = gathered or any(is_dtensor(p) for p in parts)
+        full = [whole(p) for p in parts]
+        arrays.append(torch.stack(full) if st else full[0])
+    return arrays, gathered
+
+
 def save(ckpt_dir: str, step: int, tree: PyTree,
          extra: dict | None = None) -> str:
-    os.makedirs(ckpt_dir, exist_ok=True)
+    leaves, gathered = _whole_leaves(tree)
     final = os.path.join(ckpt_dir, f"step_{step:08d}")
+    if not gathered:
+        return _write(ckpt_dir, final, step, tree, leaves, extra)
+    import torch.distributed as dist
+    if dist.get_rank() == 0:
+        _write(ckpt_dir, final, step, tree, leaves, extra)
+    del leaves
+    dist.barrier()
+    return final
+
+
+def _write(ckpt_dir, final, step, tree, leaves, extra) -> str:
+    os.makedirs(ckpt_dir, exist_ok=True)
     tmp = final + ".tmp"
     if os.path.exists(tmp):
         shutil.rmtree(tmp)
     os.makedirs(tmp)
 
-    arrays = {f"leaf_{i}": _numpy(x)
-              for i, x in enumerate(_tree.stacked(tree))}
+    arrays = {f"leaf_{i}": _numpy(x) for i, x in enumerate(leaves)}
     np.savez(os.path.join(tmp, "arrays.npz"), **arrays)
 
     hashes = {k: hashlib.sha256(v.tobytes()).hexdigest()[:16]
@@ -101,15 +131,37 @@ def latest_step(ckpt_dir: str) -> int | None:
     return max(steps) if steps else None
 
 
+def _sharding(ref, sh):
+    """Where a restored tensor goes: ``sh`` when given, else ``ref``'s
+    placements when it is a DTensor, else None (``ref``'s device)."""
+    if sh is not None:
+        return sh
+    if is_dtensor(ref):
+        return NamedSharding(ref.device_mesh, tuple(ref.placements))
+    return None
+
+
+def _device_of(mesh) -> torch.device:
+    if mesh.device_type == "cuda":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device(mesh.device_type)
+
+
 def restore(ckpt_dir: str, step: int, like: PyTree,
+            shardings: PyTree | None = None,
             verify: bool = True) -> tuple[PyTree, dict]:
     """``like`` supplies the tree structure, each leaf's dtype and device
-    (a tensor, or anything with ``shape``, ``dtype`` and ``device``). A
-    restored layer is a tensor of its own, not a view of the stack."""
+    (a tensor, or anything with ``shape``, ``dtype`` and ``device``).
+    ``shardings``, a tree of ``like``'s structure holding a
+    ``NamedSharding`` for each tensor, places each on its mesh (every
+    rank reads the whole file and keeps its part). A restored layer is a
+    tensor of its own, not a view of the stack."""
     path = os.path.join(ckpt_dir, f"step_{step:08d}")
     with open(os.path.join(path, "manifest.json")) as f:
         manifest = json.load(f)
     refs = list(_tree.walk(like))
+    shards = ([p for p, _ in _tree.walk(shardings)] if shardings is not None
+              else [[None] * len(parts) for parts, _ in refs])
     if manifest["n_leaves"] != len(refs):
         raise ValueError(
             f"checkpoint has {manifest['n_leaves']} leaves, "
@@ -127,16 +179,26 @@ def restore(ckpt_dir: str, step: int, like: PyTree,
             shape = ((len(parts),) if stack else ()) + tuple(ref.shape)
             if tuple(arr.shape) != shape:
                 raise ValueError(f"leaf_{i} shape {arr.shape} != {shape}")
-            out.append(torch.from_numpy(np.array(arr)).to(ref.device,
-                                                           ref.dtype))
-    return _tree.unstack(like, out), manifest["extra"]
+            full = torch.from_numpy(np.array(arr))
+            layers = full.unbind(0) if stack else [full]
+            got = []
+            for layer, p, sh in zip(layers, parts, shards[i]):
+                sh = _sharding(p, sh)
+                if sh is None:
+                    got.append(layer.to(p.device, p.dtype, copy=True))
+                else:
+                    got.append(place(layer.to(_device_of(sh.mesh), p.dtype),
+                                     sh))
+            out.append(got)
+    return _tree.rebuild(like, iter(out)), manifest["extra"]
 
 
-def restore_latest(ckpt_dir: str, like: PyTree):
+def restore_latest(ckpt_dir: str, like: PyTree,
+                   shardings: PyTree | None = None):
     step = latest_step(ckpt_dir)
     if step is None:
         return None
-    tree, extra = restore(ckpt_dir, step, like)
+    tree, extra = restore(ckpt_dir, step, like, shardings)
     return step, tree, extra
 
 

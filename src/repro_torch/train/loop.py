@@ -18,9 +18,20 @@ state so the transmitted sum tracks the true sum (EF-SGD).
 JAX jits and donates the step; here it runs eagerly, one kernel an op,
 and ``float(loss)`` blocks until the step's work is done, so a step's
 wall time is true (as in JAX).
+
+On a mesh (params as DTensors, ``dist.api``; the batch as DTensors split
+over the data axes, ``data.sharded_batches``) the step is the same code:
+the loss is the global mean, and each gradient comes back from autograd
+partial over the ranks that shared its work and is reduced onto its
+param's placements (the DP all-reduce, and the tensor-parallel sums),
+as GSPMD's gradients are. Compression then runs on the reduced gradient,
+where JAX runs it. With microbatches each rank splits its own part of
+the batch. Plain tensors that meet a DTensor in the step (constants,
+masks) count as replicated.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from typing import Any, Callable
@@ -31,6 +42,7 @@ import torch
 from repro_torch import _tree
 from repro_torch.core import admm_finalize, admm_init, admm_penalty, \
     admm_update
+from repro_torch.dist.api import is_dtensor, whole
 from repro_torch.dist.compress import compress, compress_init, decompress
 from repro_torch.obs import metrics as obs_metrics, trace as obs_trace
 from repro_torch.optim import clip_by_global_norm, get_optimizer
@@ -65,8 +77,39 @@ def _tensors(tree: PyTree) -> list:
 
 def _on(batch: dict, device) -> dict:
     """The batch's arrays as tensors on ``device`` (numpy goes over, as
-    jit takes numpy arguments)."""
-    return {k: torch.as_tensor(v).to(device) for k, v in batch.items()}
+    jit takes numpy arguments); DTensors stay where they are."""
+    return {k: v if is_dtensor(v) else torch.as_tensor(v).to(device)
+            for k, v in batch.items()}
+
+
+def _micro(v, n: int, i: int):
+    """Microbatch ``i`` of ``n`` of the batch array ``v``: on a mesh, the
+    i-th of n slices of this rank's own part of the batch."""
+    if not is_dtensor(v):
+        return v.reshape(n, v.shape[0] // n, *v.shape[1:])[i]
+    from torch.distributed.tensor import DTensor
+    loc = v.to_local()
+    loc = loc.reshape(n, loc.shape[0] // n, *loc.shape[1:])[i]
+    return DTensor.from_local(loc, v.device_mesh, v.placements,
+                              run_check=False)
+
+
+def _reduced(g, p):
+    """The gradient ``g`` on its param's placements (a DTensor gradient
+    arrives partial where ranks shared the work: reduced here)."""
+    if is_dtensor(p) and tuple(g.placements) != tuple(p.placements):
+        return g.redistribute(p.device_mesh, p.placements)
+    return g
+
+
+def _mesh_scope(params):
+    """Plain tensors meet DTensors in a mesh step (constants, masks, the
+    learning rate): there they count as replicated."""
+    leaves = next(iter(_tree.leaves(params)), [None])
+    if not is_dtensor(leaves[0]):
+        return contextlib.nullcontext()
+    from torch.distributed.tensor.experimental import implicit_replication
+    return implicit_replication()
 
 
 def make_train_step(
@@ -105,21 +148,24 @@ def make_train_step(
         finally:
             for p in leaves:
                 p.requires_grad_(False)
-        grads = [torch.zeros_like(p) if g is None else g
+        grads = [torch.zeros_like(p) if g is None else _reduced(g, p)
                  for p, g in zip(leaves, grads)]
         return loss.detach(), grads
 
     def step_fn(params, opt_state, admm_state, residual, batch, step):
+        with _mesh_scope(params):
+            return _step(params, opt_state, admm_state, residual, batch,
+                         step)
+
+    def _step(params, opt_state, admm_state, residual, batch, step):
         leaves = _tensors(params)
         batch = _on(batch, leaves[0].device)
         if tcfg.microbatches > 1:
             n = tcfg.microbatches
-            gsum = [torch.zeros(p.shape, dtype=F32, device=p.device)
-                    for p in leaves]
+            gsum = [torch.zeros_like(p, dtype=F32) for p in leaves]
             lsum = torch.zeros((), dtype=F32, device=leaves[0].device)
             for i in range(n):
-                mb = {k: v.reshape(n, v.shape[0] // n, *v.shape[1:])[i]
-                      for k, v in batch.items()}
+                mb = {k: _micro(v, n, i) for k, v in batch.items()}
                 l, g = value_and_grad(params, mb, admm_state)
                 for a, b in zip(gsum, g):
                     a.add_(b.to(F32))
@@ -247,8 +293,9 @@ def train(
             torch.tensor(step, dtype=torch.int32))
         if (csb_specs is not None and tcfg.admm_every
                 and (step + 1) % tcfg.admm_every == 0):
-            admm_state = admm_update(params, admm_state, csb_specs)
-        loss = float(metrics["loss"])   # blocks: the step's true wall
+            with _mesh_scope(params):
+                admm_state = admm_update(params, admm_state, csb_specs)
+        loss = float(whole(metrics["loss"]))  # blocks: the step's true wall
         dt = time.perf_counter() - t0
         timer.record(dt)
         tr = obs_trace.get()

@@ -204,13 +204,18 @@ def test_csb_shard_specs_guards():
     assert all(isinstance(getattr(p_spec, k), Replicate) for k in ARRAYS)
     _, s1 = partition_padded(pt, 1)
     assert isinstance(csb_shard_specs(s1, _Mesh(model=1)).vals, Replicate)
-    # a mixed tree keeps its structure; dense leaves are replicated
-    tree = {"w": torch.zeros(64, 32), "csb": s8, "list": [pt, torch.ones(3)]}
+    # a mixed tree keeps its structure; a dense leaf takes the placements
+    # of its param_specs spec, one per mesh axis (JAX's _leaf_spec): a 2-D
+    # weight's output dim over "model" where it divides, a vector whole
+    tree = {"w": torch.zeros(64, 32), "csb": s8, "list": [pt, torch.ones(3)],
+            "wo": torch.zeros(64, 32), "odd": torch.zeros(64, 12)}
     specs = csb_shard_specs(tree, _Mesh(data=1, model=8))
-    assert isinstance(specs["w"], Replicate)
+    assert specs["w"] == (Replicate(), Shard(1))
+    assert specs["wo"] == (Replicate(), Shard(0))
+    assert specs["odd"] == (Replicate(), Replicate())
     assert isinstance(specs["csb"].m, Shard)
     assert isinstance(specs["list"][0], PaddedCSB)
-    assert isinstance(specs["list"][1], Replicate)
+    assert specs["list"][1] == (Replicate(), Replicate())
 
 
 def test_local_shard_views_and_errors():

@@ -520,11 +520,19 @@ def test_spawn_ranks_names_the_ranks_still_booting(monkeypatch):
 
 
 def test_rules_carry_only_a_mesh_and_nest():
-    """``Rules`` refuses a placement table (nothing applies one yet);
-    nested scopes restore the outer rules, also on an error."""
-    from repro_torch.dist import current_rules
-    with pytest.raises(NotImplementedError, match="item 20"):
-        Rules({"batch": ("data",)})
+    """``Rules`` carries its mesh and a placement table (JAX's ``get``,
+    ``in``, ``items`` and ``updated``, which keeps the mesh); nested
+    scopes restore the outer rules, also on an error."""
+    from repro_torch.dist import P, current_rules
+    table = {"batch": P("data"), "residual": P("data", None, None)}
+    r = Rules(table, mesh="m")
+    assert dict(r.items()) == table and r.mesh == "m"
+    assert "batch" in r and "logits" not in r and r.get("logits") is None
+    up = r.updated(batch=P(None), logits=P("data", None, "model"))
+    assert up.mesh == "m" and up.get("batch") == P(None)
+    assert up.get("logits") == P("data", None, "model")
+    assert dict(r.items()) == table            # the original is unchanged
+    assert Rules(mesh="m").get("batch") is None
     outer, inner = Rules(mesh="outer"), Rules(mesh="inner")
     assert current_rules() is None
     with use_rules(outer):

@@ -87,10 +87,30 @@ def test_training_modules_alone_load_no_jax_repro_or_triton(module):
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
 
 
+@pytest.mark.parametrize("module", ["repro_torch.dist.api",
+                                    "repro_torch.dist.rules",
+                                    "repro_torch.launch.shardspec",
+                                    "repro_torch.launch.mesh",
+                                    "repro_torch.dist.gloo_cuda",
+                                    "repro_torch.configs.registry"])
+def test_placement_modules_alone_load_no_jax_repro_or_triton(module):
+    """The dense placements' modules, imported first and alone in a fresh
+    process, load no JAX, nothing of ``repro`` and no ``triton``."""
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    probe = (f"import json, sys, {module}; print(json.dumps(sorted(k for k "
+             f"in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', "
+             f"'repro', 'triton'))))")
+    out = subprocess.run([sys.executable, "-c", probe], capture_output=True,
+                         text=True, env=env, cwd=ROOT, timeout=240)
+    assert out.returncode == 0, out.stderr
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
 def _loaded_modules(mesh):
     """Run in each spawned rank: the JAX and ``repro`` modules loaded
-    after the sharded serving path is imported."""
+    after the sharded serving path and the mesh launcher are imported."""
     import repro_torch.kernels.csb_sharded  # noqa: F401
+    import repro_torch.launch.train  # noqa: F401
     import repro_torch.serve  # noqa: F401
     return sorted(k for k in sys.modules
                   if k.split(".")[0] in ("jax", "jaxlib", "repro"))
@@ -141,6 +161,21 @@ def test_serve_raises_without_cuda_unless_asked(no_cuda):
         rnn_serve_frames(cell, params, frames)
     assert rnn_serve_frames(cell, params, frames, device="cpu")[0].shape \
         == (2, 1, 8)
+
+
+def test_mesh_entry_points_raise_without_cuda_unless_asked(no_cuda):
+    """A mesh run and a mesh builder ask for the card unless told the
+    CPU: without CUDA they raise before any rank starts."""
+    from repro_torch.dist.launch import spawn_ranks
+    from repro_torch.launch import train as launch
+    from repro_torch.launch.mesh import make_test_mesh
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        launch.main(["--arch", "gemma-2b", "--reduced", "--mesh", "1x2",
+                     "--steps", "1"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        spawn_ranks(_loaded_modules, (1, 2))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_test_mesh()
 
 
 def test_matvec_raises_without_cuda_unless_asked(no_cuda):

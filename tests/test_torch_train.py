@@ -408,8 +408,33 @@ def test_sharded_batches_put_each_batch_on_the_device():
     assert step == 0 and isinstance(b["tokens"], torch.Tensor)
     np.testing.assert_array_equal(b["tokens"].numpy(),
                                   task.batch(0, 2, 8)["tokens"])
-    with pytest.raises(NotImplementedError, match="item 20"):
-        sharded_batches(iter([]), mesh=object(), device="cpu")
+    # on a (2, 2) mesh, as rank 2 (data coordinate 1) of a fake group:
+    # each array is a DTensor on its spec's placements, holding this
+    # rank's rows and nothing communicated
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    from repro_torch.dist import P
+    dist.init_process_group("fake", store=FakeStore(), rank=2, world_size=4)
+    try:
+        mesh = init_device_mesh("cpu", (2, 2),
+                                mesh_dim_names=("data", "model"))
+        it = sharded_batches(lm_batch_iterator(task, 4, 8), mesh,
+                             {"tokens": P("data", None)}, device="cpu")
+        _, b = next(it)
+        want = task.batch(0, 4, 8)
+        assert isinstance(b["tokens"], DTensor)
+        assert b["tokens"].placements == (Shard(0), Replicate())
+        assert b["labels"].placements == (Replicate(), Replicate())
+        assert tuple(b["tokens"].shape) == want["tokens"].shape
+        np.testing.assert_array_equal(b["tokens"].to_local().numpy(),
+                                      want["tokens"][2:])
+        np.testing.assert_array_equal(b["labels"].to_local().numpy(),
+                                      want["labels"])
+    finally:
+        dist.destroy_process_group()
 
 
 @pytest.fixture
@@ -458,20 +483,14 @@ def test_launcher_trains_a_reduced_config(arch, capsys):
     """``python -m repro_torch.launch.train --reduced --device cpu``: the
     JAX launcher's defaults (its codebook and image-embedding stubs), a
     1x1 mesh; finite losses, one a step."""
-    params, hist = launch.main(["--arch", arch, "--reduced", "--steps", "3",
-                                "--seq", "16", "--device", "cpu"])
+    ranks, hist = launch.main(["--arch", arch, "--reduced", "--steps", "3",
+                               "--seq", "16", "--device", "cpu"])
+    assert len(ranks) == 1 and ranks[0]["history"] is hist
+    assert ranks[0]["collectives_step0"] == {} and "params" in ranks[0]
     assert [h["step"] for h in hist] == [0, 1, 2]
     assert all(np.isfinite(h["loss"]) for h in hist)
     out = capsys.readouterr().out
     assert "mesh={'data': 1, 'model': 1}" in out and "final loss" in out
-
-
-@pytest.mark.parametrize("mesh", ["2x1", "1x2", "2x2x2"])
-def test_launcher_refuses_a_mesh_of_several_devices(mesh):
-    with pytest.raises(NotImplementedError, match="item 20"):
-        launch.main(["--arch", "gemma-2b", "--reduced", "--mesh", mesh,
-                     "--device", "cpu"])
-    assert launch.mesh_dims("1x1") == (1, 1)
 
 
 def _example():
