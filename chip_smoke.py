@@ -277,6 +277,33 @@ Phases, each of which raises (and the script exits nonzero) on failure:
    width, card against CPU within 1e-4. A JSON line ``{"mesh_train":
    ...}`` holds the phase's numbers.
 
+17. LM serving on a mesh (``[phase mesh-serve]``), last: the engines'
+   ``mesh=`` over the dense placements, ranks sharing this card over
+   gloo (``spawn_ranks``; every number of theirs is two ranks
+   time-slicing one card, not a multi-GPU number). Each rank draws the
+   weights from the same seeded generator and places them once
+   (``csb_shard_specs``), caches and pools on ``cache_specs``. (a)
+   gemma-2b at full width, MS_LAYERS layers (18: full depth), fp32, on
+   one card and then over a 1x2 ("data", "model") mesh: six requests
+   (prompts 40..300, arrivals 0..4, 8 new tokens) through
+   ``serve_continuous`` paged with B2 and with the gather path,
+   contiguous, the prefix cache (six requests sharing 64 tokens, through
+   B2), speculative (``spec_k`` 4, draft rate 0), ``serve_disaggregated``
+   and ``Router(2)`` through B2, and ``generate`` (4 x 64): every path's
+   tokens on every rank equal to one card's, B2's launches a rank equal
+   to one card's (each held to 2 x layers x single-query paged decode
+   steps, 0 off the kernel), the first decode step's logits within
+   MS_LOGIT_RTOL; per-rank peak memory, paged step wall p50/p99 and one
+   decode step's collectives by op printed. (b) gemma-2b over 2x1 with
+   the pool's pages split over "data" (MS_SPLIT_POOL + 1 pages; its
+   placement asserted) through B2, which runs on the pools made whole
+   on every layer and step as in JAX (the bytes printed): tokens,
+   launches and logits as (a). (c) reduced deepseek-v2-236b (MLA, B2's
+   rope term) and reduced hymba-1.5b (B2 beside SSD's state) on 1x2
+   through B2, as (a). A JSON line ``{"mesh_serve": ...}`` holds the
+   phase's numbers; B2's entry in the kernels line adds the launches of
+   one rank of each mesh.
+
 The line before the last is a JSON object with one entry per kernel (B1,
 B2, B3); the last line is ``{"ok": true, "device": {...}}``. Without CUDA the script
 exits nonzero and prints no result.
@@ -506,6 +533,28 @@ FEATURES = {"adafactor": {"optimizer": "adafactor"},
 # 78.79 GB on the card with nothing else held (PERF.md §6), too close
 # to 80 GB beside this script's own state: 12 layers
 FEATURE_LAYERS = {"int8": 12}
+# [phase mesh-serve]: LM serving on the dense placements, ranks sharing
+# the card. (a) gemma-2b at full width, fp32, one card then 1x2 over
+# "model", on a short trace through every engine; (b) the pool's pages
+# split over "data" on 2x1 (MS_SPLIT_POOL pages + the scratch page
+# divide by 2: the divisibility guard would replicate an odd count); (c)
+# reduced deepseek-v2-236b (MLA: B2's rope term) and hymba-1.5b (B2 beside
+# SSD's state) on 1x2, fp32
+MS_MESH, MS_SPLIT_MESH = (1, 2), (2, 1)
+MS_LAYERS = 18             # gemma-2b's full depth
+MS_PROMPT_LENS = (40, 97, 150, 200, 256, 300)
+MS_ARRIVALS = (0, 0, 1, 2, 3, 4)
+MS_MAX_NEW = 8
+MS_ENGINE = EngineConfig(paged=True, page_size=16, n_slots=4)
+MS_SPLIT_POOL = 79         # < 4 slots x 20 pages, and 79 + 1 is even
+MS_PREFIX_LEN = 64
+MS_SUFFIX_LENS = (8, 24, 40, 56, 72, 100)
+MS_GEN_SHAPE = (4, 64)
+MS_SPEC_K = 4              # speculative at draft rate 0: the target's
+#                            placed params are the draft's (no second copy)
+MS_LOGIT_RTOL = 1e-4       # first decode step, mesh against one card
+MS_REDUCED = ("deepseek-v2-236b", "hymba-1.5b")
+MS_TIMEOUT_S = 600         # a spawned group's deadline
 
 
 def card_line() -> str:
@@ -4230,6 +4279,313 @@ def mesh_train_phase(dev, one_card: list[float]) -> dict:
     return out
 
 
+def ms_requests(vocab: int, prefix: bool = False) -> list:
+    """[phase mesh-serve]'s short trace (MS_PROMPT_LENS), or its prefix
+    trace: one MS_PREFIX_LEN-token prefix shared, distinct suffixes."""
+    rng = np.random.default_rng(SEED + (8 if prefix else 7))
+    if prefix:
+        head = rng.integers(0, vocab, size=MS_PREFIX_LEN)
+        toks = [np.concatenate([head, rng.integers(0, vocab, size=n)])
+                for n in MS_SUFFIX_LENS]
+    else:
+        toks = [rng.integers(0, vocab, size=n) for n in MS_PROMPT_LENS]
+    return [Request(rid=i, tokens=t, max_new_tokens=MS_MAX_NEW, arrival=a)
+            for i, (t, a) in enumerate(zip(toks, MS_ARRIVALS))]
+
+
+def ms_config(arch: str, layers: int | None, reduced: bool):
+    cfg = get_reduced(arch) if reduced else get_config(arch)
+    cfg = dataclasses.replace(cfg, dtype="float32")
+    return dataclasses.replace(cfg, n_layers=layers) if layers else cfg
+
+
+def ms_engine(path: str):
+    """The EngineConfig of one path of [phase mesh-serve]."""
+    kern = MS_ENGINE.replace(use_kernel=True)
+    return {"kernel": kern, "gather": MS_ENGINE,
+            "contiguous": MS_ENGINE.replace(paged=False),
+            "prefix": kern.replace(prefix_cache=True),
+            "speculative": kern.replace(speculative=True, spec_k=MS_SPEC_K,
+                                        draft_prune_rate=0.0),
+            "disagg": kern, "router": kern,
+            "split": kern.replace(pool_pages=MS_SPLIT_POOL),
+            "generate": EngineConfig(max_new_tokens=MS_MAX_NEW)}[path]
+
+
+def ms_expected_launches(path: str, cfg, res) -> int:
+    """B2's launches a rank makes on ``path``: 2 x layers x the run's
+    single-query paged decode steps (the speculative verify step carries
+    k + 1 queries and takes the gather path, as in JAX)."""
+    if path in ("gather", "contiguous", "speculative", "generate"):
+        return 0
+    st = res.stats
+    steps = (sum(r["decode_steps"] for r in st["per_replica"])
+             if path == "router" else st["decode_steps"])
+    return paged_attn.KERNELS_PER_CALL * cfg.n_layers * steps
+
+
+def ms_serve(mesh, jobs: list) -> list:
+    """:func:`ms_serve_one` for each (arch, layers, reduced, paths) of
+    ``jobs`` in turn (one spawn of ranks serves them all)."""
+    out = []
+    for job in jobs:
+        out.append(ms_serve_one(mesh, *job))
+        gc.collect()
+        if torch.cuda.is_available():
+            torch.cuda.empty_cache()
+    return out
+
+
+def ms_serve_one(mesh, arch: str, layers: int | None, reduced: bool,
+                 paths: tuple) -> dict:
+    """Serve [phase mesh-serve]'s traces through each of ``paths`` on one
+    device (``mesh`` None) or, on every rank, on ``mesh``; the weights
+    from the same seeded generator on the same device type. Per path:
+    the tokens, B2's launches (checked against the run's decode steps),
+    the first decode step's logits, the decode steps' walls, the pools'
+    placements and the bytes of split pools made whole; on a mesh also
+    the collectives of one decode step by op, and the peak memory."""
+    from repro_torch._device import resolve_device
+    from repro_torch.models import layers as layer_mod
+    dev = resolve_device(None if mesh is None else mesh.device_type)
+    cfg = ms_config(arch, layers, reduced)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    params = LM.init_params(cfg, torch.Generator(dev).manual_seed(SEED), dev)
+    if mesh is not None:
+        # placed once: every engine's runner takes placed params as they are
+        params = serve_engine._Runner(params, cfg, mesh).params
+    kw = {"device": dev} if mesh is None else {"device": dev, "mesh": mesh}
+    reqs, px_reqs = ms_requests(cfg.vocab), ms_requests(cfg.vocab, True)
+    prompts = np.random.default_rng(SEED + 9).integers(0, cfg.vocab,
+                                                       size=MS_GEN_SHAPE)
+    out = {}
+    for path in paths:
+        eng = ms_engine(path)
+        rec = {"logits": None, "walls": [], "comm": None, "pools": []}
+        layer_mod.POOL_GATHER.update(bytes=0, calls=0)
+        paged_attn.LAUNCHES = 0
+        t0 = time.perf_counter()
+        with ms_spy(rec, mesh is not None and path == "kernel"):
+            if path == "generate":
+                res = generate(params, cfg, prompts, eng, **kw)
+                tokens = res.cpu().numpy().tolist()
+            else:
+                trace = px_reqs if path == "prefix" else reqs
+                if path == "disagg":
+                    res = serve_disaggregated(params, cfg, trace, eng, **kw)
+                elif path == "router":
+                    res = Router(2, eng).serve(params, cfg, trace, **kw)
+                else:
+                    res = serve_continuous(params, cfg, trace, eng, **kw)
+                tokens = {int(k): list(map(int, v))
+                          for k, v in res.tokens.items()}
+        secs = time.perf_counter() - t0
+        launches = paged_attn.LAUNCHES
+        want = (0 if path == "generate"
+                else ms_expected_launches(path, cfg, res))
+        if launches != want:
+            raise AssertionError(f"{arch} {path}: paged_attn launched "
+                                 f"{launches} kernels, expected {want}")
+        walls = [w * 1e3 for w in rec["walls"][1:]]
+        out[path] = {
+            "tokens": tokens, "launches": launches, "secs": secs,
+            "logits": rec["logits"], "comm": rec["comm"],
+            "pools": rec["pools"],
+            "gather_bytes": layer_mod.POOL_GATHER["bytes"],
+            "paged_steps": len(rec["walls"]),
+            "step_p50_ms": (float(np.percentile(walls, 50)) if walls
+                            else None),
+            "step_p99_ms": (float(np.percentile(walls, 99)) if walls
+                            else None),
+            "sharded": (res.stats.get("sharded") if path not in
+                        ("generate", "router") else None),
+            "prefix_hits": (res.stats.get("prefix_hits")
+                            if path == "prefix" else None)}
+    out["peak_gb"] = (torch.cuda.max_memory_allocated() / 1e9
+                      if dev.type == "cuda" else None)
+    return out
+
+
+@contextlib.contextmanager
+def ms_spy(rec: dict, count_comm: bool):
+    """For the engines' paged decode steps: each step's wall (the device
+    synchronised on both sides), the first step's last-position logits
+    over the model's vocab (not its padding columns), the collectives of
+    the second step (``count_comm``); and the placements of every pool
+    the runners place."""
+    step_paged = serve_engine._Runner.step_paged
+    place_cache = serve_engine._Runner.place_cache
+
+    def sync(t):
+        if t.is_cuda:
+            torch.cuda.synchronize(t.device)
+
+    def step(self, cache, tokens, *a, **kw):
+        sync(tokens)
+        t0 = time.perf_counter()
+        if count_comm and rec["comm"] is None and len(rec["walls"]) == 1:
+            from torch.distributed.tensor.debug import CommDebugMode
+            mode = CommDebugMode()
+            with mode:
+                out = step_paged(self, cache, tokens, *a, **kw)
+            rec["comm"] = {str(k).split(".")[-1]: v
+                           for k, v in mode.get_comm_counts().items()}
+        else:
+            out = step_paged(self, cache, tokens, *a, **kw)
+        sync(tokens)
+        rec["walls"].append(time.perf_counter() - t0)
+        if rec["logits"] is None:
+            # the model's own vocab: its padded columns are -1e30
+            rec["logits"] = out[0][:, -1, :self.cfg.vocab].float().cpu()
+        return out
+
+    def place(self, cache, paged=False):
+        placed = place_cache(self, cache, paged=paged)
+        if paged and self.mesh is not None:
+            rec["pools"] += [str(tuple(t.placements))
+                             for t in _leaves(placed)]
+        return placed
+
+    serve_engine._Runner.step_paged = step
+    serve_engine._Runner.place_cache = place
+    try:
+        yield
+    finally:
+        serve_engine._Runner.step_paged = step_paged
+        serve_engine._Runner.place_cache = place_cache
+
+
+def ms_compare(what: str, one: dict, ranks: list, paths) -> dict:
+    """Each path's tokens on every rank equal to one device's, B2's
+    launches per rank equal to one device's (each already held to the
+    run's decode steps), the first decode step's logits within
+    MS_LOGIT_RTOL (relative to their largest magnitude)."""
+    out = {}
+    for path in paths:
+        want = one[path]
+        for r, res in enumerate(ranks):
+            got = res[path]
+            if got["tokens"] != want["tokens"]:
+                raise AssertionError(f"{what} {path}: rank {r}'s tokens "
+                                     f"{got['tokens']} != one device's "
+                                     f"{want['tokens']}")
+            if got["launches"] != want["launches"]:
+                raise AssertionError(f"{what} {path}: rank {r} launched "
+                                     f"B2 {got['launches']} times, one "
+                                     f"device {want['launches']}")
+            if got["sharded"] is False:
+                raise AssertionError(f"{what} {path}: not sharded")
+        rel = None
+        if want["logits"] is not None:
+            ref = want["logits"]
+            rel = max(float((res[path]["logits"] - ref).abs().max()
+                            / ref.abs().max()) for res in ranks)
+            if rel > MS_LOGIT_RTOL:
+                raise AssertionError(f"{what} {path}: first decode step's "
+                                     f"logits {rel:.3e} from one device's "
+                                     f"(bound {MS_LOGIT_RTOL})")
+        r0 = ranks[0][path]
+        out[path] = {"launches_per_rank": r0["launches"],
+                     "one_card_secs": want["secs"],
+                     "mesh_secs": [r[path]["secs"] for r in ranks],
+                     "logit_rel": rel,
+                     "one_card_step_p50_ms": want["step_p50_ms"],
+                     "step_p50_ms": [r[path]["step_p50_ms"] for r in ranks],
+                     "step_p99_ms": [r[path]["step_p99_ms"] for r in ranks],
+                     "gather_bytes_per_step": (
+                         r0["gather_bytes"] / max(r0["paged_steps"], 1)),
+                     "pools": r0["pools"], "prefix_hits": r0["prefix_hits"]}
+        print(f"  {what} {path}: tokens equal on {len(ranks)} ranks; B2 "
+              f"{r0['launches']} launches a rank"
+              + (f"; first step's logits {rel:.3e}" if rel is not None
+                 else "")
+              + f"; {want['secs']:.1f} s one card, "
+              f"{max(out[path]['mesh_secs']):.1f} s on the mesh"
+              + (f"; step p50 {want['step_p50_ms']:.1f} ms one card, "
+                 f"{[round(v, 1) for v in out[path]['step_p50_ms']]} ms "
+                 f"(p99 {[round(v, 1) for v in out[path]['step_p99_ms']]})"
+                 if r0["paged_steps"] else ""))
+    return out
+
+
+def mesh_serve_phase(dev) -> dict:
+    """LM serving on the dense placements over ranks sharing the card:
+    (a) gemma-2b at full width (MS_LAYERS layers), fp32, on one card and
+    on MS_MESH through every engine; (b) the pool split over "data" on
+    MS_SPLIT_MESH through B2; (c) reduced deepseek-v2-236b and
+    hymba-1.5b on MS_MESH through B2. Every path's tokens on every rank
+    equal to one card's, B2's launches a rank equal to one card's (2 x
+    layers x single-query paged steps), the first decode step's logits
+    within MS_LOGIT_RTOL."""
+    out, t = {}, [time.perf_counter()]
+    paths = ("kernel", "gather", "contiguous", "prefix", "speculative",
+             "disagg", "router", "generate")
+    # (a) and (c) share one spawn of MS_MESH's ranks
+    jobs = [(ARCH, MS_LAYERS, False, paths)] + [
+        (arch, None, True, ("kernel",)) for arch in MS_REDUCED]
+    gc.collect()
+    torch.cuda.empty_cache()
+    one_all = ms_serve(None, jobs)
+    gc.collect()
+    torch.cuda.empty_cache()
+    ranks_all = spawn_ranks(ms_serve, MS_MESH, jobs, timeout_s=MS_TIMEOUT_S)
+    one, ranks = one_all[0], [r[0] for r in ranks_all]
+    cfg = ms_config(ARCH, MS_LAYERS, False)
+    if cfg.n_layers < get_config(ARCH).n_layers:
+        print(f"  (a) and (b): {ARCH}'s depth cut to {cfg.n_layers} of "
+              f"{get_config(ARCH).n_layers} layers (the phase's time)")
+    print(f"  (a) {ARCH} at full width, {cfg.n_layers} layers, fp32, "
+          f"{len(MS_PROMPT_LENS)} requests (prompts {MS_PROMPT_LENS}, "
+          f"{MS_MAX_NEW} new tokens, arrivals {MS_ARRIVALS}), "
+          f"{MS_ENGINE.n_slots} slots, pages of {MS_ENGINE.page_size}; one "
+          f"card, then {MS_MESH} (\"data\", \"model\"): two ranks sharing "
+          f"this card ({card_line()}) over gloo, not a multi-GPU number")
+    out["a"] = ms_compare(f"(a) {MS_MESH}", one, ranks, paths)
+    out["a"]["peak_gb"] = [r["peak_gb"] for r in ranks]
+    out["a"]["one_card_peak_gb"] = one["peak_gb"]
+    out["a"]["decode_step_collectives"] = ranks[0]["kernel"]["comm"]
+    print(f"      per-rank peak {out['a']['peak_gb']} GB (one card "
+          f"{out['a']['one_card_peak_gb']} GB); one decode step's "
+          f"collectives on rank 0: {ranks[0]['kernel']['comm']}")
+    t.append(time.perf_counter())
+    # (b) the pool split over "data": its placements asserted
+    job_b = [(ARCH, MS_LAYERS, False, ("split",))]
+    one_b = ms_serve(None, job_b)[0]
+    gc.collect()
+    torch.cuda.empty_cache()
+    ranks_b = [r[0] for r in spawn_ranks(ms_serve, MS_SPLIT_MESH, job_b,
+                                         timeout_s=MS_TIMEOUT_S)]
+    for r, res in enumerate(ranks_b):
+        pools = res["split"]["pools"]
+        if not pools or any("Shard(dim=1)" not in p for p in pools):
+            raise AssertionError(f"(b) rank {r}: the pools' placements "
+                                 f"{pools}, not split on their page dim")
+    print(f"  (b) {ARCH}, {MS_SPLIT_POOL} pages + the scratch page over "
+          f"{MS_SPLIT_MESH}: pools placed {sorted(set(ranks_b[0]['split']['pools']))}")
+    out["b"] = ms_compare(f"(b) {MS_SPLIT_MESH}", one_b, ranks_b, ("split",))
+    print(f"      split pools made whole for B2 (as JAX does): "
+          f"{out['b']['split']['gather_bytes_per_step'] / 1e6:.2f} MB a "
+          f"decode step a rank")
+    t.append(time.perf_counter())
+    # (c) reduced MLA and hybrid through B2 (served in (a)'s spawn)
+    out["c"] = {}
+    for i, arch in enumerate(MS_REDUCED, start=1):
+        out["c"][arch] = ms_compare(
+            f"(c) reduced {arch} {MS_MESH}", one_all[i],
+            [r[i] for r in ranks_all], ("kernel",))["kernel"]
+    out["part_s"] = [b - a for a, b in zip(t, t[1:])]
+    # B2's launches on one rank over (a), (b) and (c)
+    out["launches"] = (sum(out["a"][p]["launches_per_rank"] for p in paths)
+                       + out["b"]["split"]["launches_per_rank"]
+                       + sum(v["launches_per_rank"]
+                             for v in out["c"].values()))
+    print(f"  mesh-serve phase: (a) with (c) {out['part_s'][0]:.1f} s, (b) "
+          f"{out['part_s'][1]:.1f} s; card {card_line()}")
+    print(json.dumps({"mesh_serve": out}))
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA device; none is available",
@@ -4291,6 +4647,7 @@ def main() -> int:
     tr = phase("train", train_phase, dev)
     phase("mesh-train", mesh_train_phase, dev,
           tr["full"]["losses"][:MESH_STEPS])
+    ms = phase("mesh-serve", mesh_serve_phase, dev)
     print(f"[total {time.perf_counter() - t_start:.1f} s]")
     print(json.dumps({"kernels": [{
         **KERNEL, "launches": (sl["launches"] + pp["launches"]
@@ -4321,7 +4678,9 @@ def main() -> int:
         **PAGED_KERNEL,
         "launches": (lm_launches + gen_launches + px_launches
                      + dg["launches"] + rt["launches"] + ds["launches"]
-                     + ssd["launches"]),
+                     + ssd["launches"] + ms["launches"]),
+        # [phase mesh-serve]: B2's launches on one rank of each mesh
+        "mesh_launches_per_rank": ms["launches"],
         "max_abs_err": paged_err["gemma"], "ms": pt["ms"],
         "plain_ms": pt["plain_ms"], "bound_ms": pt["bound_ms"],
         "bound_by": pt["bound_by"], "library_ms": pt["library_ms"],

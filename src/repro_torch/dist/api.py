@@ -154,6 +154,16 @@ def whole(x):
     return x.full_tensor() if is_dtensor(x) else x
 
 
+def reduced(x):
+    """The DTensor ``x`` with its partial sums reduced (each ``Partial``
+    placement made ``Replicate``; its splits kept), the values unchanged;
+    any other tensor itself. A partial sum that several ops consume would
+    otherwise be reduced again by each of them."""
+    if not is_dtensor(x) or not any(p.is_partial() for p in x.placements):
+        return x
+    return x.redistribute(x.device_mesh, _whole_dims(x, set()))
+
+
 def like(x, ref):
     """``x`` (whole, alike on every rank) placed as ``ref`` is, when
     ``ref`` is a DTensor; ``x`` itself otherwise."""
@@ -249,6 +259,151 @@ def run_local(fn, args, placements, out_placements):
         return tuple(_wrap(o, mesh, pls)
                      for o, pls in zip(out, out_placements))
     return _wrap(out, mesh, out_placements)
+
+
+def part_bounds(x) -> list[tuple[int, int]]:
+    """Per dim of the DTensor ``x``, the ``[lo, hi)`` of the whole tensor
+    that this rank's part holds (every split even, as ``fit_spec``
+    guarantees; several mesh dims splitting one tensor dim nest, the
+    first outermost, as DTensor nests them)."""
+    mesh = x.device_mesh
+    coord = mesh.get_coordinate()
+    lo, size = [0] * x.ndim, list(x.shape)
+    for i, p in enumerate(x.placements):
+        if p.is_shard():
+            d = p.dim % x.ndim
+            if size[d] % mesh.size(i):
+                raise ValueError(f"dim {d} of {tuple(x.shape)} splits "
+                                 f"unevenly over {mesh.size(i)} ranks")
+            size[d] //= mesh.size(i)
+            lo[d] += coord[i] * size[d]
+    return [(a, a + n) for a, n in zip(lo, size)]
+
+
+def write_parts(buf, index: tuple, value, first: int = 0) -> None:
+    """``buf[(:,) * first + index] = value`` in place, where ``index``
+    holds one integer tensor per dim from ``first`` on (broadcast
+    together to a shape S) in the whole tensor's coordinates, and
+    ``value`` is whole on every rank: ``buf``'s leading dims, then S,
+    then its trailing dims (or a number). On a DTensor each rank writes
+    the entries that fall in its part, at local indices, into its local
+    tensor (which the DTensor shares); nothing is communicated, and no
+    rank makes ``buf`` whole. Splits of the leading dims raise."""
+    if not is_dtensor(buf):
+        buf[(slice(None),) * first + tuple(
+            torch.as_tensor(i, device=buf.device) for i in index)] = value
+        return
+    bounds = part_bounds(buf)
+    if any(hi - lo != buf.shape[d]
+           for d, (lo, hi) in enumerate(bounds[:first])):
+        raise ValueError("write_parts: a leading dim is split")
+    loc = buf.to_local()
+    idx = torch.broadcast_tensors(*[torch.as_tensor(i, device=loc.device)
+                                    for i in index])
+    ok = torch.ones(idx[0].shape, dtype=torch.bool, device=loc.device)
+    for d, i in enumerate(idx, start=first):
+        lo, hi = bounds[d]
+        ok &= (i >= lo) & (i < hi)
+    if not bool(ok.any()):
+        return
+    local_idx = tuple(i[ok] - bounds[d][0]
+                      for d, i in enumerate(idx, start=first))
+    if torch.is_tensor(value):
+        value = value[(slice(None),) * first + (ok,)]
+        # trailing dims: this rank's part of each split one
+        tail = first + len(index)
+        for d in range(tail, buf.ndim):
+            lo, hi = bounds[d]
+            if hi - lo != buf.shape[d]:
+                value = value.narrow(first + 1 + d - tail, lo, hi - lo)
+        value = value.to(loc.dtype)
+    loc[(slice(None),) * first + local_idx] = value
+
+
+def take_whole(x, dim: int, index: torch.Tensor) -> torch.Tensor:
+    """``x.index_select(dim, index)``, whole on every rank (a plain
+    tensor). On a DTensor each rank picks, from its own part, the indexed
+    rows that its part holds along ``dim`` (zeros for the others); the
+    picks are summed over the mesh dims that split ``dim`` (exact: every
+    entry is one row plus zeros) and gathered over the others' splits.
+    Only the selection moves: no rank makes ``x`` whole."""
+    if not is_dtensor(x):
+        return x.index_select(dim, index.to(x.device))
+    from torch.distributed.tensor import DTensor, Partial
+    dim %= x.ndim
+    loc = x.to_local()
+    lo, hi = part_bounds(x)[dim]
+    index = index.to(loc.device)
+    ok = (index >= lo) & (index < hi)
+    part = loc.index_select(dim, (index - lo).clamp(0, hi - lo - 1))
+    shape = [1] * loc.ndim
+    shape[dim] = -1
+    part = torch.where(ok.view(shape), part, torch.zeros((), dtype=part.dtype,
+                                                         device=part.device))
+    out = tuple(Partial() if p.is_shard() and p.dim % x.ndim == dim else p
+                for p in x.placements)
+    return DTensor.from_local(part, x.device_mesh, out,
+                              run_check=False).full_tensor()
+
+
+def copy_into(dst, src) -> None:
+    """``dst.copy_(src)`` in place, for ``src`` of ``dst``'s shape: on a
+    DTensor ``dst`` (and ``src``) each rank copies its own part, ``src``
+    redistributed to ``dst``'s placements first."""
+    if not is_dtensor(dst):
+        dst.copy_(src)
+        return
+    if tuple(src.placements) != tuple(dst.placements):
+        src = src.redistribute(dst.device_mesh, dst.placements)
+    dst.to_local().copy_(src.to_local())
+
+
+def select_part(x, i: int):
+    """``x[i]`` of a DTensor whose dim 0 is whole, as a DTensor sharing
+    ``x``'s memory (the layer slice of a stacked cache, written in place
+    through its parts); ``x[i]`` of any other tensor."""
+    if not is_dtensor(x):
+        return x[i]
+    from torch.distributed.tensor import DTensor, Shard
+    if any(p.is_shard() and p.dim % x.ndim == 0 for p in x.placements):
+        raise ValueError("select_part: dim 0 is split")
+    pls = tuple(Shard(p.dim % x.ndim - 1) if p.is_shard() else p
+                for p in x.placements)
+    return DTensor.from_local(x.to_local()[i], x.device_mesh, pls,
+                              run_check=False)
+
+
+def stack_parts(ts: list):
+    """``torch.stack(ts)`` of DTensors placed alike, stacked part by part
+    (no communication); ``torch.stack`` of plain tensors."""
+    if not is_dtensor(ts[0]):
+        return torch.stack(ts)
+    from torch.distributed.tensor import DTensor, Shard
+    t0 = ts[0]
+    pls = tuple(Shard(p.dim % t0.ndim + 1) if p.is_shard() else p
+                for p in t0.placements)
+    return DTensor.from_local(torch.stack([t.to_local() for t in ts]),
+                              t0.device_mesh, pls, run_check=False)
+
+
+def replicate_on(x, mesh):
+    """The plain tensor ``x`` (whole, alike on every rank) as a DTensor
+    replicated on ``mesh``; a DTensor unchanged."""
+    if is_dtensor(x):
+        return x
+    from torch.distributed.tensor import DTensor, Replicate
+    return DTensor.from_local(x, mesh, (Replicate(),) * mesh.ndim,
+                              run_check=False)
+
+
+def plain_as_replicated(on: bool):
+    """A scope in which a plain tensor meeting a DTensor (a constant, a
+    mask, a position) counts as replicated (DTensor's
+    ``implicit_replication``), where ``on``; a null scope otherwise."""
+    if not on:
+        return contextlib.nullcontext()
+    from torch.distributed.tensor.experimental import implicit_replication
+    return implicit_replication()
 
 
 def pad(x, widths, value: float = 0.0):

@@ -75,7 +75,14 @@ def paged_attn_decode(q, k_pool, v_pool, page_table, pos, *, scale: float,
                       ) -> torch.Tensor:
     """Single-query decode attention of every slot over its pages;
     returns (B, H, Dv) fp32 (see ``paged_attn.paged_attn_cuda`` for the
-    shapes). ``pos`` is an int, (1,) or (B,)."""
+    shapes). ``pos`` is an int, (1,) or (B,). A function of plain tensors:
+    on a mesh the caller hands it each rank's local tensors (the decode
+    layers pass whole ones), and a DTensor raises ``TypeError``."""
+    from torch.distributed.tensor import DTensor
+    if any(isinstance(t, DTensor)
+           for t in (q, k_pool, v_pool, page_table, pos, q2, k2_pool)):
+        raise TypeError("paged_attn_decode takes plain tensors; on a mesh "
+                        "pass each rank's local tensors")
     pos = torch.as_tensor(pos, dtype=torch.int32, device=q.device)
     pos = pos.reshape(-1)
     kw = dict(scale=scale, q2=q2, k2_pool=k2_pool, window=window)

@@ -18,14 +18,24 @@ with JAX's logical names through ``dist.api.shard``, at JAX's
 positions ("attn_q"/"attn_kv" before rope, the "moe_*" streams,
 "ssd_inner" with ``fallback="replicate"``); each is the identity on a
 plain tensor and outside a mesh, and on a DTensor it redistributes.
-The serve-only sites (caches, pages, the prompt pass's replicated MLA
-concats, the decode pins) wait for serving on a mesh (ROADMAP item
-22). Where DTensor's own op strategies are wrong or missing (torch
+Where DTensor's own op strategies are wrong or missing (torch
 2.11's flip, pad, a reshape inside an einsum; a cumsum along a split
 dim), the work runs on each rank's part with the dims it
 works along whole (``dist.api.along``, ``run_local``): the attention
 per batch row and head, the SSD scan per batch row, MoE's dispatch
 positions, every pad.
+
+Decode on a mesh (serving): a cache write lands in each rank's own part
+of the cache at local indices (``dist.api.write_parts``: a slot's rows
+over "data", a contiguous cache's time over "model", a pool's pages over
+"data"). Decode attention runs as JAX pins it: on whole inputs on every
+rank (q, the caches or pools, the positions made whole; the page table is
+replicated), paged-attention kernel included, and its output is pinned
+to the "residual" layout before the row-parallel out-projection; a pool
+split over "data" is made whole for it on every layer and step, as in
+JAX (``POOL_GATHER`` counts those bytes). MLA's absorbed products run on
+each rank's heads; SSD's decode step on each rank's batch rows with its
+heads whole (JAX's ``replicated(ssm_state)``).
 The cache primitives write in place (``_cache_write``, ``paged_write``),
 where JAX returns a new array: it saves a copy of the whole cache per
 layer and step; so do the SSD decode's per-slot states (``ssd_step``).
@@ -38,7 +48,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.dist.api import (
-    along, is_dtensor, pad, run_local, shard,
+    along, copy_into, is_dtensor, pad, replicate_on, run_local, shard,
+    whole, write_parts,
 )
 
 from .config import ModelConfig
@@ -248,7 +259,14 @@ def context_attention(q, k, v, ctx_k, ctx_v, start: int, *, window=None):
     A single-chunk mirror of :func:`blockwise_attention`'s math over
     ``concat([ctx, suffix])`` keys: a masked column adds exactly -1e30 to
     the max and exactly 0 to the sums, so a suffix row equals the full
-    single-chunk prefill's row (prompts within one kv chunk)."""
+    single-chunk prefill's row (prompts within one kv chunk).
+
+    On a mesh it runs on whole inputs on every rank and returns a
+    replicated result: JAX pins the concat's operands replicated."""
+    if is_dtensor(q):
+        out = context_attention(whole(q), whole(k), whole(v), whole(ctx_k),
+                                whole(ctx_v), start, window=window)
+        return replicate_on(out, q.device_mesh)
     b, s, h, d = q.shape
     c = ctx_k.shape[1]
     dev = q.device
@@ -320,10 +338,12 @@ def _decode_pos(pos, s: int, device):
     """Normalize a decode position to (query_pos, row_pos).
 
     ``pos`` may be a scalar (the whole batch at one depth) or a (B,)
-    vector (continuous batching: each slot at its own depth). Returns the
-    rope positions of the s query tokens, (s,) or (B, s), and
-    ``row_pos`` shaped (1,) or (B,) for per-row cache masking."""
-    pos = torch.as_tensor(pos, device=device)
+    vector (continuous batching: each slot at its own depth; a DTensor
+    on a mesh). Returns the rope positions of the s query tokens, (s,)
+    or (B, s), and ``row_pos`` shaped (1,) or (B,) for per-row cache
+    masking."""
+    if not is_dtensor(pos):
+        pos = torch.as_tensor(pos, device=device)
     if pos.ndim == 0:
         return pos + torch.arange(s, device=device), pos[None]
     return pos[:, None] + torch.arange(s, device=device), pos
@@ -347,16 +367,17 @@ def _cache_write(buf: torch.Tensor, new: torch.Tensor, pos) -> torch.Tensor:
     Each row's start is placed as JAX's ``dynamic_update_slice`` places
     it: a negative start counts once from the end, then the start is
     clamped to ``[0, T - s]``, so a verify step whose overhang runs past
-    the buffer lands shifted back inside it, not cut off."""
+    the buffer lands shifted back inside it, not cut off. On a mesh each
+    rank writes the rows and times of its own part."""
     b, s = new.shape[0], new.shape[1]
     t = buf.shape[1]
     dev = buf.device
-    start = torch.as_tensor(pos, dtype=torch.int64, device=dev)
+    start = torch.as_tensor(whole(pos), dtype=torch.int64, device=dev)
     start = start.reshape(-1).expand(b)
     start = torch.clamp(torch.where(start < 0, start + t, start), 0, t - s)
-    rows = torch.arange(b, device=dev)[:, None]
-    buf[rows, start[:, None] + torch.arange(s, device=dev)] = \
-        new.to(buf.dtype)
+    rows = torch.arange(b, device=dev)[:, None].expand(b, s)
+    write_parts(buf, (rows, start[:, None] + torch.arange(s, device=dev)),
+                whole(new).to(buf.dtype))
     return buf
 
 
@@ -370,7 +391,9 @@ def _softmax(sc: torch.Tensor) -> torch.Tensor:
 def _attend_cache(q, kc, vc, row_pos, cfg: ModelConfig):
     """Decode attention of the s query tokens ``q`` (B, s, H, D) against
     a per-slot cache (B, T, KV, D), with the causal decode mask at
-    ``row_pos``. Returns (B, s, H*Dv) fp32."""
+    ``row_pos``. Returns (B, s, H*Dv) fp32; on a mesh, from whole inputs
+    on every rank, a plain tensor alike on every rank."""
+    q, kc, vc, row_pos = (whole(t) for t in (q, kc, vc, row_pos))
     b, s = q.shape[0], q.shape[1]
     t, kv = kc.shape[1], kc.shape[2]
     qh = q.reshape(b, s, kv, cfg.n_heads // kv, cfg.hd)
@@ -386,6 +409,17 @@ def _attend_cache(q, kc, vc, row_pos, cfg: ModelConfig):
     return o.reshape(b, s, -1)
 
 
+def _residual_pin(o, x):
+    """The decode attention's output ``o`` (whole on every rank on a
+    mesh) pinned to the "residual" layout before the row-parallel
+    out-projection, as JAX pins it (``fallback="replicate"``); ``o``
+    itself off a mesh."""
+    if not is_dtensor(x):
+        return o
+    return shard(replicate_on(o, x.device_mesh), "residual",
+                 fallback="replicate")
+
+
 def attn_decode(p, x, cfg: ModelConfig, cache, pos):
     """Decode step through the contiguous cache. cache: {k: (B, T, KV, D),
     v: ...}, written in place; ``pos`` scalar or (B,). x may carry s > 1
@@ -396,7 +430,7 @@ def attn_decode(p, x, cfg: ModelConfig, cache, pos):
     q, k, v = attn_qkv(p, x, cfg, qpos)
     ck = _cache_write(cache["k"], k, pos)
     cv = _cache_write(cache["v"], v, pos)
-    o = _attend_cache(q, ck, cv, row_pos, cfg).to(x.dtype)
+    o = _residual_pin(_attend_cache(q, ck, cv, row_pos, cfg).to(x.dtype), x)
     return dense(o, p["wo"]), {"k": ck, "v": cv}
 
 
@@ -423,16 +457,33 @@ def paged_write(pool: torch.Tensor, new: torch.Tensor, pos,
     Rows whose position is not mapped (inactive slots) carry the scratch
     page in ``page_table``, so the scatter needs no mask. Several
     inactive rows may write the same scratch position; which one wins is
-    unspecified on the card, and nothing reads it unmasked."""
+    unspecified on the card, and nothing reads it unmasked. On a pool
+    split over "data" each rank writes the tokens whose pages it holds,
+    at local page indices (``page_table`` is replicated)."""
     b, s = new.shape[0], new.shape[1]
     psz = pool.shape[1]
     dev = pool.device
-    posv = torch.as_tensor(pos, dtype=torch.int64, device=dev)
+    posv = torch.as_tensor(whole(pos), dtype=torch.int64, device=dev)
     posv = posv.reshape(-1).expand(b)[:, None] + torch.arange(s, device=dev)
     logical = torch.clamp(posv // psz, 0, page_table.shape[1] - 1)
     page = torch.gather(page_table.long(), 1, logical)
-    pool[page, posv % psz] = new.to(pool.dtype)
+    write_parts(pool, (page, posv % psz), whole(new).to(pool.dtype))
     return pool
+
+
+# bytes of split pools made whole for decode attention (a mesh with a
+# "data" axis > 1 splits a pool's pages): {"bytes": n, "calls": m}
+POOL_GATHER = {"bytes": 0, "calls": 0}
+
+
+def whole_pool(pool: torch.Tensor) -> torch.Tensor:
+    """The whole pool on every rank, as JAX makes it whole for decode
+    attention on every layer and step (a split one all-gathered, its
+    bytes counted in ``POOL_GATHER``); a plain pool itself."""
+    if is_dtensor(pool) and any(p.is_shard() for p in pool.placements):
+        POOL_GATHER["bytes"] += pool.numel() * pool.element_size()
+        POOL_GATHER["calls"] += 1
+    return whole(pool)
 
 
 def paged_gather(pool: torch.Tensor, page_table: torch.Tensor
@@ -440,7 +491,9 @@ def paged_gather(pool: torch.Tensor, page_table: torch.Tensor
     """Each slot's logical time extent out of the pool: (N, P, ...)
     gathered through (B, max_pages) -> (B, max_pages*P, ...). Unmapped
     entries gather the scratch page, at logical positions the
-    ``kpos <= pos`` mask removes exactly."""
+    ``kpos <= pos`` mask removes exactly. On a mesh the pool is made
+    whole first (:func:`whole_pool`) and the result is plain."""
+    pool = whole_pool(pool)
     b, mp = page_table.shape
     g = pool[page_table.long()]                 # (B, max_pages, P, ...)
     return g.reshape((b, mp * pool.shape[1]) + tuple(pool.shape[2:]))
@@ -456,7 +509,9 @@ def attn_decode_paged(p, x, cfg: ModelConfig, cache, pos, page_table,
     kernel (``kernels.paged_attn_decode``: the CUDA kernel on the card,
     its plain version on the CPU), which walks the page table instead of
     materializing the (B, max_pages*P) gather. The kernel path is
-    single-query (s == 1); multi-token steps take the gather path."""
+    single-query (s == 1); multi-token steps take the gather path. On a
+    mesh the kernel runs on every rank on whole inputs (the pools made
+    whole, :func:`whole_pool`), as JAX pins them replicated."""
     b, s, _ = x.shape
     qpos, row_pos = _decode_pos(pos, s, x.device)
     q, k, v = attn_qkv(p, x, cfg, qpos)
@@ -464,14 +519,16 @@ def attn_decode_paged(p, x, cfg: ModelConfig, cache, pos, page_table,
     cv = paged_write(cache["v"], v, pos, page_table)
     if use_kernel and s == 1:
         from repro_torch.kernels.ops import paged_attn_decode
-        o = paged_attn_decode(q[:, 0], ck, cv, page_table, row_pos,
+        o = paged_attn_decode(whole(q)[:, 0], whole_pool(ck),
+                              whole_pool(cv), page_table, whole(row_pos),
                               scale=1.0 / math.sqrt(cfg.hd),
                               window=cfg.window)
-        o = o.reshape(b, s, -1).to(x.dtype)
+        o = _residual_pin(o.reshape(b, s, -1).to(x.dtype), x)
         return dense(o, p["wo"]), {"k": ck, "v": cv}
     o = _attend_cache(q, paged_gather(ck, page_table),
                       paged_gather(cv, page_table), row_pos, cfg)
-    return dense(o.to(x.dtype), p["wo"]), {"k": ck, "v": cv}
+    return dense(_residual_pin(o.to(x.dtype), x), p["wo"]), \
+        {"k": ck, "v": cv}
 
 
 def attn_paged_cache_init(cfg: ModelConfig, n_pages: int, page_size: int,
@@ -553,22 +610,55 @@ def mla_apply(p, x, cfg: ModelConfig, *, window=None):
     return mla_prefill(p, x, cfg, pos, window=window)[0]
 
 
+def _per_head(fn, a, w, cfg: ModelConfig):
+    """``fn(a, w)`` for an activation ``a`` (B, s, H, ...) and an up-
+    projection ``w`` (kvl, H*hd) whose product is independent per head.
+    On a mesh each rank runs its own heads where ``w`` is split over
+    heads (its output dim, whole heads per rank) and its own batch rows
+    where ``a``'s are split; every other split is made whole. The result
+    keeps those splits (DTensor's einsums here fail in torch 2.11: a
+    reshape that would merge a split dim)."""
+    if not is_dtensor(w):
+        return fn(whole(a), w)
+    from torch.distributed.tensor import Replicate, Shard
+    mesh = w.device_mesh
+    a = replicate_on(a, mesh)
+    pa, pw = [], []
+    for i, (p_a, p_w) in enumerate(zip(a.placements, w.placements)):
+        if p_w.is_shard() and p_w.dim % 2 == 1 \
+                and cfg.n_heads % mesh.size(i) == 0:
+            pa.append(Shard(2))
+            pw.append(Shard(1))
+        elif p_a.is_shard() and p_a.dim % a.ndim == 0:
+            pa.append(Shard(0))
+            pw.append(Replicate())
+        else:
+            pa.append(Replicate())
+            pw.append(Replicate())
+    return run_local(fn, (a, w), (tuple(pa), tuple(pw)), tuple(pa))
+
+
 def _absorbed_q(p, q_nope, cfg: ModelConfig):
     """The MLA decode trick: q_nope . (W_kb c) = (W_kb^T q_nope) . c, so
     q_c (B, s, H, kvl) scores the latent cache directly; fp32, as JAX's
     ``preferred_element_type=F32`` leaves it."""
-    wkb = p["wk_b"].reshape(cfg.kv_lora, cfg.n_heads, cfg.hd)
-    return torch.einsum("bqhd,lhd->bqhl", q_nope.to(wkb.dtype).to(F32),
-                        wkb.to(F32))
+    def absorb(qn, w):
+        wkb = w.reshape(cfg.kv_lora, qn.shape[2], cfg.hd)
+        return torch.einsum("bqhd,lhd->bqhl", qn.to(wkb.dtype).to(F32),
+                            wkb.to(F32))
+    return _per_head(absorb, q_nope, p["wk_b"], cfg)
 
 
 def _mla_out(p, o_c, x, cfg: ModelConfig):
     """Absorb the v up-projection into the latent output o_c
     (B, s, H, kvl) fp32, then the out-projection."""
     b, s = o_c.shape[:2]
-    wvb = p["wv_b"].reshape(cfg.kv_lora, cfg.n_heads, cfg.hd)
-    o = torch.einsum("bqhl,lhd->bqhd", o_c.to(wvb.dtype).to(F32),
-                     wvb.to(F32))
+
+    def up(oc, w):
+        wvb = w.reshape(cfg.kv_lora, oc.shape[2], cfg.hd)
+        return torch.einsum("bqhl,lhd->bqhd", oc.to(wvb.dtype).to(F32),
+                            wvb.to(F32))
+    o = _per_head(up, o_c, p["wv_b"], cfg)
     return dense(o.reshape(b, s, -1).to(x.dtype), p["wo"])
 
 
@@ -576,8 +666,10 @@ def _mla_attend(p, x, q_nope, q_rope, cc, cr, row_pos, cfg: ModelConfig):
     """Absorbed-q decode attention over per-slot latent caches cc
     (B, T, kvl) and cr (B, T, rd) with the causal decode mask at
     ``row_pos``: the gather branch's math (q_c rounded to the cache's
-    dtype before the score product, as JAX rounds it)."""
-    q_c = _absorbed_q(p, q_nope, cfg)
+    dtype before the score product, as JAX rounds it). On a mesh the
+    scores and the latent output come from whole inputs on every rank."""
+    q_c = whole(_absorbed_q(p, q_nope, cfg))
+    q_rope, cc, cr, row_pos = (whole(t) for t in (q_rope, cc, cr, row_pos))
     s_c = torch.einsum("bqhl,bkl->bhqk", q_c.to(cc.dtype).to(F32),
                        cc.to(F32))
     s_r = torch.einsum("bqhd,bkd->bhqk", q_rope.to(cr.dtype).to(F32),
@@ -622,7 +714,8 @@ def mla_decode_paged(p, x, cfg: ModelConfig, cache, pos, page_table,
     the kernel's second score product (q2 = q_rope, k2_pool = k_rope),
     q_c in fp32 as JAX passes it. The gather branch rounds q_c to the
     pool's dtype before its score product, as JAX's does; in bf16 the
-    two branches round differently in JAX too."""
+    two branches round differently in JAX too. On a mesh the kernel runs
+    on every rank on whole inputs, as JAX pins them replicated."""
     b, s, _ = x.shape
     qpos, row_pos = _decode_pos(pos, s, x.device)
     q_nope, q_rope, c_kv, k_rope = _mla_qkv(p, x, cfg, qpos)
@@ -631,15 +724,16 @@ def mla_decode_paged(p, x, cfg: ModelConfig, cache, pos, page_table,
     new = {"c_kv": cc_pool, "k_rope": cr_pool}
     if use_kernel and s == 1:
         from repro_torch.kernels.ops import paged_attn_decode
-        q_c = _absorbed_q(p, q_nope, cfg)
-        latent = cc_pool.unsqueeze(2)          # (N, P, KV=1, kvl)
+        q_c = whole(_absorbed_q(p, q_nope, cfg))
+        latent = whole_pool(cc_pool).unsqueeze(2)   # (N, P, KV=1, kvl)
         # the kernel takes q and q2 in one dtype: bf16 q_rope is exact in
         # fp32, and both are rounded to the pool's dtype inside
         o_c = paged_attn_decode(
-            q_c[:, 0].contiguous(), latent, latent, page_table, row_pos,
+            q_c[:, 0].contiguous(), latent, latent, page_table,
+            whole(row_pos),
             scale=1.0 / math.sqrt(cfg.hd + cfg.rope_head_dim),
-            q2=q_rope[:, 0].to(F32).contiguous(),
-            k2_pool=cr_pool.unsqueeze(2))
+            q2=whole(q_rope)[:, 0].to(F32).contiguous(),
+            k2_pool=whole_pool(cr_pool).unsqueeze(2))
         return _mla_out(p, o_c[:, None], x, cfg), new
     return (_mla_attend(p, x, q_nope, q_rope, paged_gather(cc_pool,
                                                            page_table),
@@ -1028,38 +1122,52 @@ def ssd_block_apply(p, x, cfg: ModelConfig, conv_state=None,
     Decode: x is (B,1,d) and the states (B, k-1, conv_dim) and
     (B, H, P, N); returns (y, new conv state, new SSM state), the update
     computed in fp32 and the SSM state stored in ``ssm_state``'s dtype.
-    The states passed in are not written."""
+    The states passed in are not written. On a mesh the step runs on each
+    rank's batch rows with every other dim whole: the streams' splits
+    and the SSM state's head split (JAX's ``replicated(ssm_state)``) are
+    made whole first, so the conv and the state update see no split (what
+    JAX's "ssd_inner" anchors and its pin on the conv output ask)."""
     if not decode:
         return ssd_prefill(p, x, cfg)[0]
-    bsz = x.shape[0]
     di, n, h, pd = cfg.d_inner, cfg.d_state, cfg.ssd_heads, cfg.ssd_headdim
     z, conv_in, dtp = _ssd_in_proj(p, x, cfg)
-    cw = _ssd_conv_weight(p, cfg)
-    hist = torch.cat([conv_state.to(conv_in.dtype), conv_in], dim=1)
-    # JAX's einsum over the k taps: a dot summed in fp32, rounded once
-    conv = (hist.to(F32) * cw.to(F32)).sum(1)
-    conv = _silu(conv.to(conv_in.dtype)[:, None])
-    xc, bc, cc = torch.split(conv, [di, n, n], dim=-1)
-    xh = xc.reshape(bsz, 1, h, pd)
-    a = -torch.exp(p["a_log"])
-    dt1 = _softplus(dtp.to(F32) + p["dt_bias"])[:, 0]        # (B,H)
-    st = ssm_state.to(F32)                                   # (B,H,P,N)
-    da = torch.exp(dt1 * a[None, :])
-    dbx = ((dt1[:, :, None] * xh[:, 0].to(F32))[..., None]
-           * bc[:, 0].to(F32)[:, None, None, :])
-    st = st * da[..., None, None] + dbx
-    y = torch.einsum("bn,bhpn->bhp", cc[:, 0].to(F32), st)
-    out = _ssd_out(p, z, xh, y[:, None], x, cfg)
-    return out, hist[:, 1:], st.to(ssm_state.dtype)
+
+    def step(conv_in, dtp, conv_state, ssm_state, cw, a_log, dt_bias):
+        hist = torch.cat([conv_state.to(conv_in.dtype), conv_in], dim=1)
+        # JAX's einsum over the k taps: a dot summed in fp32, rounded once
+        conv = (hist.to(F32) * cw.to(F32)).sum(1)
+        conv = _silu(conv.to(conv_in.dtype)[:, None])
+        xc, bc, cc = torch.split(conv, [di, n, n], dim=-1)
+        xh = xc.reshape(conv_in.shape[0], 1, h, pd)
+        a = -torch.exp(a_log)
+        dt1 = _softplus(dtp.to(F32) + dt_bias)[:, 0]          # (B,H)
+        st = ssm_state.to(F32)                                # (B,H,P,N)
+        da = torch.exp(dt1 * a[None, :])
+        dbx = ((dt1[:, :, None] * xh[:, 0].to(F32))[..., None]
+               * bc[:, 0].to(F32)[:, None, None, :])
+        st = st * da[..., None, None] + dbx
+        y = torch.einsum("bn,bhpn->bhp", cc[:, 0].to(F32), st)
+        return xh, y[:, None], hist[:, 1:], st.to(ssm_state.dtype)
+
+    args = (conv_in, dtp, conv_state, ssm_state, _ssd_conv_weight(p, cfg),
+            p["a_log"], p["dt_bias"])
+    if is_dtensor(conv_in):
+        xh, y, conv, ssm = _rows_local(step, args,
+                                       (0, 0, 0, 0, None, None, None),
+                                       (0, 0, 0, 0))
+    else:
+        xh, y, conv, ssm = step(*args)
+    return _ssd_out(p, z, xh, y, x, cfg), conv, ssm
 
 
 def ssd_step(p, x, cfg: ModelConfig, cache: dict):
     """One decode step of the block through its per-slot state cache
-    {conv, ssm}, written in place; returns (y, cache)."""
+    {conv, ssm}, written in place (each rank its own part on a mesh);
+    returns (y, cache)."""
     y, conv, ssm = ssd_block_apply(p, x, cfg, conv_state=cache["conv"],
                                    ssm_state=cache["ssm"], decode=True)
-    cache["conv"].copy_(conv)
-    cache["ssm"].copy_(ssm)
+    copy_into(cache["conv"], conv)
+    copy_into(cache["ssm"], ssm)
     return y, cache
 
 

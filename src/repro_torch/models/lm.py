@@ -35,7 +35,8 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch._device import resolve_device
 from repro_torch.dist.api import (
-    current_rules, is_dtensor, pad, run_local, shard, use_rules,
+    current_rules, is_dtensor, pad, reduced, run_local, select_part, shard,
+    stack_parts, use_rules, whole,
 )
 
 from . import layers as L
@@ -76,16 +77,19 @@ def _ffn(lp, x, cfg: ModelConfig):
 
 def _stack(per_layer: list) -> dict:
     """[{leaf: (B, ...)}] per layer -> {leaf: (L, B, ...)}, nested
-    dicts (the hybrid cache) stacked leaf by leaf."""
+    dicts (the hybrid cache) stacked leaf by leaf (DTensors part by
+    part)."""
     return {k: (_stack([c[k] for c in per_layer]) if isinstance(v, dict)
-                else torch.stack([c[k] for c in per_layer]))
+                else stack_parts([c[k] for c in per_layer]))
             for k, v in per_layer[0].items()}
 
 
 def _layer_cache(cache: dict, li: int) -> dict:
     """Layer ``li``'s slice of every stacked cache leaf (views, each
-    contiguous), nested dicts included."""
-    return {k: (_layer_cache(v, li) if isinstance(v, dict) else v[li])
+    contiguous; on a mesh DTensors over each rank's part), nested dicts
+    included."""
+    return {k: (_layer_cache(v, li) if isinstance(v, dict)
+                else select_part(v, li))
             for k, v in cache.items()}
 
 
@@ -199,9 +203,11 @@ def _logits(hidden, params, cfg: ModelConfig, head, mask: bool = True):
     """fp32 logits; the columns past ``cfg.vocab`` (the padded vocab) are
     masked where ``mask``. A codebook head's K*V columns are not padding:
     every caller but ``prefill_partial`` passes ``mask=False`` for
-    codebook models, as JAX's entry points do."""
+    codebook models, as JAX's entry points do. On a mesh the logits are
+    made whole (the vocab split gathered), alike on every rank, so that
+    every rank samples the same token."""
     w = head_f32(params, cfg) if head is None else head
-    logits = hidden.to(F32) @ w
+    logits = whole(hidden.to(F32) @ w)
     if mask and logits.shape[-1] != cfg.vocab:   # mask padded vocab rows
         idx = torch.arange(logits.shape[-1], device=logits.device)
         logits = torch.where(idx < cfg.vocab, logits,
@@ -356,19 +362,36 @@ def prefill(params, batch, cfg: ModelConfig, window=None, last_pos=None,
     the right padding invisible to every real position (but pad tokens
     still take MoE capacity, in JAX too). It is placed as
     :func:`_last_index` says. ``head`` is an optional precomputed
-    :func:`head_f32`."""
+    :func:`head_f32`. On a mesh the residual stream's partial sums are
+    reduced once where they arise (the vocab-parallel lookup, the
+    row-parallel projections), not again by each op that reads them."""
     x, _ = assemble_inputs(params, batch, cfg)
+    x = reduced(x)
     seqlen = x.shape[1]
     kvs = []
     for lp in params["layers"]:
         x, kv = _prefill_layer(lp, x, cfg, window, seqlen)
         kvs.append(kv)
     hidden = L.rmsnorm(x, params["final_norm"])
-    last = hidden[:, _last_index(last_pos, seqlen)]
+    last = _at(hidden, _last_index(last_pos, seqlen))
     logits = _logits(last, params, cfg, head, mask=not cfg.n_codebooks)
     if cfg.n_codebooks:
         logits = logits.reshape(-1, cfg.n_codebooks, cfg.vocab)
     return logits, _stack(kvs)
+
+
+def _at(hidden, i: int):
+    """``hidden[:, i]``; on a mesh on each rank's part, its sequence dim
+    whole and its other splits kept."""
+    if not is_dtensor(hidden):
+        return hidden[:, i]
+    from torch.distributed.tensor import Replicate
+    pls = tuple(Replicate() if p.is_partial() or (
+        p.is_shard() and p.dim % hidden.ndim == 1) else p
+        for p in hidden.placements)
+    out = tuple(p if p.is_replicate() or p.dim % hidden.ndim == 0
+                else type(p)(p.dim % hidden.ndim - 1) for p in pls)
+    return run_local(lambda t: t[:, i], (hidden,), (pls,), out)
 
 
 def _last_index(last_pos, s: int) -> int:
@@ -390,7 +413,8 @@ def _prefill_layer(lp, x, cfg: ModelConfig, window, seqlen):
     mp = lp["mixer"]
     if cfg.mixer == "mla":
         mix, kv = L.mla_prefill(mp, h, cfg, pos, window=window)
-        kv = {k: v.to(dt) for k, v in kv.items()}
+        kv = {"c_kv": shard(kv["c_kv"].to(dt), "mla_cache"),
+              "k_rope": kv["k_rope"].to(dt)}
     elif cfg.mixer == "ssd":
         mix, conv, ssm = L.ssd_prefill(mp, h, cfg)
         kv = {"conv": conv, "ssm": ssm}
@@ -399,12 +423,13 @@ def _prefill_layer(lp, x, cfg: ModelConfig, window, seqlen):
         q, k, v = L.attn_qkv(ap, h, cfg, pos)
         o = L.blockwise_attention(q, k, v, causal=True, window=window)
         mix = L.dense(o.reshape(b, seqlen, -1), ap["wo"])
-        kv = {"k": k.to(dt), "v": v.to(dt)}
+        kv = {"k": shard(k.to(dt), "kv_cache"),
+              "v": shard(v.to(dt), "kv_cache")}
         if cfg.mixer == "hybrid":
             ys, conv, ssm = L.ssd_prefill(mp["ssd"], h, cfg)
             mix = L.hybrid_fuse(mp, mix, ys)
             kv = {"attn": kv, "ssd": {"conv": conv, "ssm": ssm}}
-    return shard(_ffn(lp, x + mix, cfg), "residual"), kv
+    return reduced(shard(_ffn(lp, reduced(x + mix), cfg), "residual")), kv
 
 
 def prefill_partial(params, batch, ctx, cfg: ModelConfig, window=None,
@@ -431,6 +456,7 @@ def prefill_partial(params, batch, ctx, cfg: ModelConfig, window=None,
             "prefix-cache partial prefill needs a position-indexed cache "
             f"(attn/mla), not {cfg.mixer!r}")
     x, _ = assemble_inputs(params, batch, cfg)
+    x = reduced(x)
     seqlen = x.shape[1]
     kvs = []
     for li, lp in enumerate(params["layers"]):
@@ -438,7 +464,7 @@ def prefill_partial(params, batch, ctx, cfg: ModelConfig, window=None,
                                        window, seqlen, int(start))
         kvs.append(kv)
     hidden = L.rmsnorm(x, params["final_norm"])
-    last = hidden[:, _last_index(last_pos, seqlen)]
+    last = _at(hidden, _last_index(last_pos, seqlen))
     return _logits(last, params, cfg, head), _stack(kvs)
 
 
@@ -459,14 +485,17 @@ def _prefill_partial_layer(lp, ctx_l, x, cfg: ModelConfig, window, seqlen,
         ctx_k, ctx_v = L._mla_heads(mp, ctx_l["c_kv"], ctx_l["k_rope"], cfg)
         o = L.context_attention(torch.cat([q_nope, q_rope], -1), k, v,
                                 ctx_k, ctx_v, start, window=window)
-        kv = {"c_kv": c_kv, "k_rope": k_rope[:, :, 0]}
+        kv = {"c_kv": shard(c_kv.to(dt), "mla_cache"),
+              "k_rope": k_rope[:, :, 0].to(dt)}
     else:
         q, k, v = L.attn_qkv(mp, h, cfg, pos)
         o = L.context_attention(q, k, v, ctx_l["k"], ctx_l["v"], start,
                                 window=window)
-        kv = {"k": k, "v": v}
-    x = _ffn(lp, x + L.dense(o.reshape(b, seqlen, -1), mp["wo"]), cfg)
-    return x, {k: v.to(dt) for k, v in kv.items()}
+        kv = {"k": shard(k.to(dt), "kv_cache"),
+              "v": shard(v.to(dt), "kv_cache")}
+    x = _ffn(lp, reduced(x + L.dense(o.reshape(b, seqlen, -1), mp["wo"])),
+             cfg)
+    return reduced(shard(x, "residual")), kv
 
 
 def layer_decode(lp, x, cache_l, pos, cfg: ModelConfig):
@@ -479,7 +508,7 @@ def layer_decode(lp, x, cache_l, pos, cfg: ModelConfig):
         decode = {"attn": L.attn_decode, "mla": L.mla_decode,
                   "hybrid": L.hybrid_decode}[cfg.mixer]
         mix, nc = decode(lp["mixer"], h, cfg, cache_l, pos)
-    return _ffn(lp, x + mix, cfg), nc
+    return reduced(_ffn(lp, reduced(x + mix), cfg)), nc
 
 
 def decode_step(params, cache, tokens, pos, cfg: ModelConfig, head=None):
@@ -490,7 +519,7 @@ def decode_step(params, cache, tokens, pos, cfg: ModelConfig, head=None):
     depth); s > 1 is the speculative verify step. Returns (logits
     (B, s, V) fp32, cache); codebook tokens are (B, 1, K) and their
     logits (B, 1, K, V)."""
-    x = embed_tokens(params, tokens, cfg)
+    x = reduced(embed_tokens(params, tokens, cfg))
     for li, lp in enumerate(params["layers"]):
         x, _ = layer_decode(lp, x, _layer_cache(cache, li), pos, cfg)
     hidden = L.rmsnorm(x, params["final_norm"])
@@ -514,7 +543,7 @@ def layer_decode_paged(lp, x, cache_l, pos, page_table, cfg: ModelConfig,
                   "hybrid": L.hybrid_decode_paged}[cfg.mixer]
         mix, nc = decode(lp["mixer"], h, cfg, cache_l, pos, page_table,
                          use_kernel)
-    return _ffn(lp, x + mix, cfg), nc
+    return reduced(_ffn(lp, reduced(x + mix), cfg)), nc
 
 
 def decode_step_paged(params, cache, tokens, pos, page_table,
@@ -531,7 +560,7 @@ def decode_step_paged(params, cache, tokens, pos, page_table,
     them.
     ``use_kernel=True`` swaps each layer's ``paged_gather`` attention for
     the paged-attention kernel."""
-    x = embed_tokens(params, tokens, cfg)
+    x = reduced(embed_tokens(params, tokens, cfg))
     for li, lp in enumerate(params["layers"]):
         x, _ = layer_decode_paged(lp, x, _layer_cache(cache, li), pos,
                                   page_table, cfg, use_kernel)

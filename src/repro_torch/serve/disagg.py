@@ -45,8 +45,8 @@ from repro_torch.obs import metrics as obs_metrics, trace as obs_trace
 from .config import EngineConfig, resolve_config
 from .engine import (
     ServeResult, _admissions, _check_text_inputs, _insert_prefilled,
-    _paged_step, _prefill_request, _Runner, _sampler, _shared_ctx,
-    _to_device, _trace_cache_len,
+    _paged_step, _prefill_request, _resolve_mesh, _Runner, _sampler,
+    _shared_ctx, _to_device, _trace_cache_len,
 )
 from .paging import PagePool, SharedInfo, pages_for
 from .scheduler import Request, SlotScheduler, evict_slot_state
@@ -89,9 +89,9 @@ class PrefillTier:
     mixers (attn, mla), as ``serve_continuous`` buckets them."""
 
     def __init__(self, params, cfg: ModelConfig, config: EngineConfig,
-                 *, head=None, device=None):
+                 *, head=None, mesh=None, policy=None, device=None):
         self.device = resolve_device(device)
-        self.runner = _Runner(params, cfg, head=head)
+        self.runner = _Runner(params, cfg, mesh, policy, head=head)
         bucket = (config.bucket_prompts
                   if config.bucket_prompts is not None else True)
         self.bucket = bucket and cfg.mixer in ("attn", "mla")
@@ -121,10 +121,11 @@ class DecodeTier:
     step (the paged-attention kernel with ``config.use_kernel``)."""
 
     def __init__(self, params, cfg: ModelConfig, config: EngineConfig,
-                 cache_len: int, *, head=None, device=None):
+                 cache_len: int, *, head=None, mesh=None, policy=None,
+                 device=None):
         self.config = config
         dev = resolve_device(device)
-        self.runner = _Runner(params, cfg, head=head)
+        self.runner = _Runner(params, cfg, mesh, policy, head=head)
         self.prefix = config.prefix_cache and cfg.mixer in ("attn", "mla")
         max_pages = pages_for(cache_len, config.page_size)
         n_pool = (config.n_slots * max_pages
@@ -133,9 +134,9 @@ class DecodeTier:
                              max_pages, prefix_cache=self.prefix,
                              device=dev)
         self.sched = SlotScheduler(config.n_slots, pool=self.pool)
-        self.cache = LM.init_paged_cache(
+        self.cache = self.runner.place_cache(LM.init_paged_cache(
             cfg, self.pool.n_pages, config.page_size, config.n_slots,
-            getattr(torch, cfg.dtype), dev)
+            getattr(torch, cfg.dtype), dev), paged=True)
         self.cur = torch.zeros((config.n_slots, 1), dtype=torch.int32,
                                device=dev)
         self.handoffs = 0
@@ -210,6 +211,7 @@ class DecodeTier:
 def serve_disaggregated(params, cfg: ModelConfig,
                         requests: list[Request],
                         config: EngineConfig | None = None, *, mesh=None,
+                        policy=None,
                         generator: torch.Generator | None = None,
                         device=None) -> ServeResult:
     """Serve ``requests`` through split prefill and decode tiers on
@@ -222,7 +224,14 @@ def serve_disaggregated(params, cfg: ModelConfig,
     generators in the same state: each admission draws its first token,
     then each step its tokens, in ``serve_continuous``'s order (default:
     a fresh generator seeded 0). Codebook and image-token models raise
-    ``NotImplementedError``, as does ``mesh=`` (the multi-GPU slice).
+    ``NotImplementedError``.
+
+    With ``mesh=`` (``policy=``), called alike on every rank, each tier
+    owns its own runner on the mesh (the decode tier's over the prefill
+    tier's placed parameters and head), the decode pool is placed on
+    ``cache_specs`` and a handoff crosses from the prefill tier into the
+    decode pool on that one mesh; every rank returns the one-device
+    tokens.
     """
     if cfg.n_codebooks:
         raise NotImplementedError(
@@ -230,10 +239,6 @@ def serve_disaggregated(params, cfg: ModelConfig,
             "codebook models go through generate()")
     _check_text_inputs(cfg, "serve_disaggregated")
     config = resolve_config(config, caller="serve_disaggregated")
-    if mesh is not None:
-        raise NotImplementedError(
-            "serve_disaggregated(mesh=...) waits for the multi-GPU slice "
-            "of the port")
     if not config.paged:
         raise ValueError(
             "serve_disaggregated requires config.paged=True (the "
@@ -246,7 +251,7 @@ def serve_disaggregated(params, cfg: ModelConfig,
                      prefix_cache=False, prefill_tokens=0,
                      handoffs=0, handoff_pages=0,
                      compile_time_s=0.0, steady_tokens_per_sec=0.0,
-                     sharded=False)
+                     sharded=_resolve_mesh(mesh) is not None)
         stats["paging"] = PagePool(
             config.page_size,
             1 if config.pool_pages is None else config.pool_pages,
@@ -256,9 +261,11 @@ def serve_disaggregated(params, cfg: ModelConfig,
     cache_len = _trace_cache_len(config.cache_len, requests)
 
     params = _to_device(params, dev)
-    prefill_tier = PrefillTier(params, cfg, config, device=dev)
-    decode_tier = DecodeTier(params, cfg, config, cache_len,
-                             head=prefill_tier.runner.head, device=dev)
+    prefill_tier = PrefillTier(params, cfg, config, mesh=mesh,
+                               policy=policy, device=dev)
+    decode_tier = DecodeTier(prefill_tier.runner.params, cfg, config,
+                             cache_len, head=prefill_tier.runner.head,
+                             mesh=mesh, policy=policy, device=dev)
     sched = decode_tier.sched
     for r in requests:
         sched.submit(r)
@@ -322,6 +329,6 @@ def serve_disaggregated(params, cfg: ModelConfig,
     stats["compile_time_s"] = round(compile_ns / 1e9, 6)
     stats["steady_tokens_per_sec"] = round(
         steady_tokens / (steady_ns / 1e9), 3) if steady_ns > 0 else 0.0
-    stats["sharded"] = False
+    stats["sharded"] = decode_tier.runner.mesh is not None
     return ServeResult(sched.results, stats, wall)
 

@@ -22,7 +22,12 @@ checked on the card. With a ``DeviceMesh`` (one process per rank) its
 CSB weights are partitioned over the mesh's "model" axis and run through
 kernel B3, and the frame batch is split over the other axes.
 
-The mesh-sharded LM engines wait for the port's sharded dense layers.
+The LM engines take ``mesh=`` (a ``DeviceMesh``, one process a rank, each
+rank calling the engine alike; or the active Rules' mesh) and ``policy=``:
+the parameters are placed on ``dist.rules.csb_shard_specs``, the caches
+and pools on ``cache_specs``, tokens and positions on ``batch_specs``,
+and every prefill and step runs under the mesh's activation rules
+(:class:`_Runner`). Every rank returns the one-device run's tokens.
 """
 from __future__ import annotations
 
@@ -36,7 +41,9 @@ import torch
 from repro_torch._device import resolve_device
 from repro_torch.cells import CellGraph, cell_apply, init_state
 from repro_torch.dist.api import (
-    Rules, axis_sizes, current_rules, require_mesh, use_rules,
+    NamedSharding, Rules, axis_sizes, current_rules, fit_spec, is_dtensor,
+    place, place_tree, plain_as_replicated, require_mesh, take_whole,
+    to_placements, use_rules, whole,
 )
 from repro_torch.models import ModelConfig
 from repro_torch.models import lm as LM
@@ -61,11 +68,23 @@ def bucket_len(n: int, floor: int = 8) -> int:
 
 
 class _Runner:
-    """One (params, cfg) serving context on one device: holds the
-    parameters, one fp32 copy of the head for the logits product (so
-    that a low-precision model does not cast its (d, V) head on every
-    step; ``head=`` shares another runner's), and the cold-call
-    bookkeeping.
+    """One (params, cfg, mesh, policy) serving context: holds the
+    parameters (placed on the mesh once), one fp32 copy of the head for
+    the logits product (so that a low-precision model does not cast its
+    (d, V) head on every step; ``head=`` shares another runner's; on a
+    mesh it keeps its weight's vocab split), and the cold-call
+    bookkeeping, and runs every prefill and step under its Rules.
+
+    Rules precedence, JAX's: an explicit ``mesh=`` derives
+    ``activation_rules(cfg, mesh, policy)``; with no mesh argument a
+    caller's ambient ``use_rules`` scope is honoured as it stands (its
+    mesh and its table). A trivial mesh is no mesh. On a mesh the
+    parameters are placed on ``csb_shard_specs`` (parameters already
+    placed, another runner's, are taken as they are), tokens and
+    positions on ``batch_specs(cfg, "decode")``; the caller places the
+    caches (:meth:`place_cache`) and replicates a prefilled request
+    cache before inserting it (:meth:`place_slot_cache`). Prefill and
+    decode logits come back whole and alike on every rank.
 
     ``last_cold`` is True when the preceding prefill/step call was the
     first with its shape key (prefill length; decode-step variant): that
@@ -73,15 +92,37 @@ class _Runner:
     libraries' workspaces), and the engine charges its wall time to
     ``compile_time_s`` instead of the steady-state throughput."""
 
-    def __init__(self, params, cfg: ModelConfig, head=None):
+    def __init__(self, params, cfg: ModelConfig, mesh=None, policy=None,
+                 head=None):
+        from repro_torch.dist.rules import (
+            ShardingPolicy, activation_rules, csb_shard_specs,
+        )
         self.cfg = cfg
+        ambient = current_rules()
+        self.mesh = _resolve_mesh(mesh)
+        self.policy = policy or ShardingPolicy()
+        if self.mesh is not None:
+            if mesh is None and ambient is not None:
+                self.rules = ambient
+            else:
+                self.rules = activation_rules(cfg, self.mesh, self.policy)
+            if not _placed(params):
+                specs = csb_shard_specs(params, self.mesh,
+                                        policy=self.policy)
+                params = place_tree(_copy_tree(params),
+                                    _named(self.mesh, specs))
+        else:
+            # meshless rules are inert for shard()
+            self.rules = ambient or Rules()
         self.params = params
         self.head = LM.head_f32(params, cfg) if head is None else head
         self.last_cold = False
         self._seen_keys: set = set()
 
     def _call_cold(self, key, call):
-        out = call()
+        with use_rules(self.rules), plain_as_replicated(
+                self.mesh is not None):
+            out = call()
         self.last_cold = key not in self._seen_keys
         self._seen_keys.add(key)
         return out
@@ -94,23 +135,101 @@ class _Runner:
 
     def prefill_partial(self, tokens: torch.Tensor, ctx: dict, start: int,
                         last_pos: int):
-        """Prefill a prompt suffix against gathered shared-prefix pages."""
+        """Prefill a prompt suffix against gathered shared-prefix pages
+        (``ctx`` rides whole on every rank, as JAX replicates it)."""
+        ctx = self.place_slot_cache(ctx)
         key = ("prefill_partial", tuple(tokens.shape), cache_len_of(ctx))
         return self._call_cold(key, lambda: LM.prefill_partial(
             self.params, {"tokens": tokens}, ctx, self.cfg, start=start,
             last_pos=last_pos, head=self.head))
 
+    def _batch_placed(self, key: str, x: torch.Tensor):
+        """``x`` placed on ``batch_specs(cfg, "decode")[key]`` (a spec no
+        dim of ``x`` can carry leaves it plain: replicated)."""
+        from repro_torch.dist.rules import batch_specs
+        if self.mesh is None or x.ndim == 0:
+            return x
+        spec = fit_spec(batch_specs(self.cfg, "decode", self.mesh)[key],
+                        tuple(x.shape), self.mesh)
+        if spec is None:
+            return x
+        return place(x, NamedSharding(self.mesh,
+                                      to_placements(spec, self.mesh)))
+
+    def place_cache(self, cache: dict, paged: bool = False) -> dict:
+        """The whole ``cache`` (every rank alike) placed on
+        ``cache_specs`` (``paged=``: the pools' pages over "data"); the
+        cache itself off a mesh."""
+        from repro_torch.dist.rules import cache_specs
+        if self.mesh is None:
+            return cache
+        specs = cache_specs(self.cfg, cache, self.mesh, self.policy,
+                            paged=paged)
+        return place_tree(_copy_tree(cache), _named(self.mesh, specs))
+
+    def place_slot_cache(self, req_cache: dict) -> dict:
+        """A freshly prefilled request cache made whole on every rank
+        before it is written into the batch cache (JAX replicates it:
+        one request's worth); the cache itself off a mesh."""
+        if self.mesh is None:
+            return req_cache
+        return _map_tree(whole, req_cache)
+
     def step(self, cache, tokens, pos):
         key = ("step", torch.as_tensor(pos).ndim)
+        if self.mesh is not None:
+            pos = self._batch_placed("pos", torch.as_tensor(
+                pos, device=tokens.device))
+            tokens = self._batch_placed("tokens", tokens)
         return self._call_cold(key, lambda: LM.decode_step(
             self.params, cache, tokens, pos, self.cfg, head=self.head))
 
     def step_paged(self, cache, tokens, pos, page_table,
                    use_kernel: bool = False):
         key = ("paged", pos.ndim, use_kernel)
+        if self.mesh is not None:
+            tokens = self._batch_placed("tokens", tokens)
+            pos = self._batch_placed("pos", pos)
         return self._call_cold(key, lambda: LM.decode_step_paged(
             self.params, cache, tokens, pos, page_table, self.cfg,
             use_kernel=use_kernel, head=self.head))
+
+
+def _map_tree(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _map_tree(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map_tree(fn, v) for v in tree)
+    return fn(tree)
+
+
+def _copy_tree(tree):
+    """A new tree of dicts and lists over the same tensors (placing it
+    replaces its leaves, not the caller's)."""
+    return _map_tree(lambda t: t, tree)
+
+
+def _named(mesh, placements):
+    """Each leaf's placements (a tuple, one per mesh dim) or spec as a
+    ``NamedSharding`` on ``mesh``."""
+    from repro_torch.dist.api import P
+
+    def one(pl):
+        return NamedSharding(mesh, to_placements(pl, mesh)
+                             if isinstance(pl, P) else tuple(pl))
+    if isinstance(placements, dict):
+        return {k: _named(mesh, v) for k, v in placements.items()}
+    if isinstance(placements, list):
+        return [_named(mesh, v) for v in placements]
+    return one(placements)
+
+
+def _placed(tree) -> bool:
+    """Whether the tree's first tensor is a DTensor (placed already)."""
+    while isinstance(tree, (dict, list)):
+        tree = next(iter(tree.values())) if isinstance(tree, dict) \
+            else tree[0]
+    return is_dtensor(tree)
 
 
 def _check_text_inputs(cfg: ModelConfig, caller: str) -> None:
@@ -147,7 +266,7 @@ def _sampler(temperature: float, generator: torch.Generator | None):
 def generate(params, cfg: ModelConfig, tokens,
              config: EngineConfig | None = None,
              generator: torch.Generator | None = None, *, mesh=None,
-             device=None) -> torch.Tensor:
+             policy=None, device=None) -> torch.Tensor:
     """tokens: (B, S_prompt) ids, or (B, S_prompt, K) for a K-codebook
     model (array or tensor). Returns (B, S + new), or (B, S + new, K),
     int64 on ``device`` (``None`` means the card; parameters move there).
@@ -166,29 +285,33 @@ def generate(params, cfg: ModelConfig, tokens,
     own V logits. An image-token model raises ``NotImplementedError``:
     ``generate`` passes its prefill tokens alone, no ``img_embeds`` (JAX's
     fails on the missing key); drive ``models.lm.prefill`` and
-    ``decode_step`` with ``batch["img_embeds"]`` instead. ``mesh=`` raises
-    too: it waits for the multi-GPU slice."""
+    ``decode_step`` with ``batch["img_embeds"]`` instead.
+
+    With ``mesh=`` (or the active Rules' mesh; ``policy=`` a
+    ``ShardingPolicy``), called alike on every rank, the parameters,
+    cache and batch run placed on the mesh (:class:`_Runner`) and every
+    rank returns the one-device tokens; at ``temperature > 0`` every rank
+    draws from a generator in the same starting state."""
     scfg = resolve_config(config, caller="generate")
-    if mesh is not None:
-        raise NotImplementedError(
-            "generate(mesh=...) waits for the multi-GPU slice of the port")
     _check_text_inputs(cfg, "generate()")
     if scfg.speculative:
         from .speculative import generate_speculative
         return generate_speculative(params, cfg, tokens, scfg, generator,
-                                    device=device)
+                                    mesh=mesh, policy=policy, device=device)
     dev = resolve_device(device)
     tokens = torch.as_tensor(tokens, device=dev).long()
     b, s = tokens.shape[:2]
     total = scfg.cache_len or (s + scfg.max_new_tokens)
-    runner = _Runner(_to_device(params, dev), cfg)
+    runner = _Runner(_to_device(params, dev), cfg, mesh, policy)
     if generator is None and scfg.temperature > 0.0:
         generator = torch.Generator(device=dev).manual_seed(0)
     sample = _sampler(scfg.temperature, generator)
     with torch.no_grad():
         logits, cache = runner.prefill(tokens)
-        # right-size the cache for the decode loop
-        cache = grow_cache(cache, total - cache_len_of(cache))
+        # right-size the cache for the decode loop (whole on a mesh, then
+        # placed on cache_specs)
+        cache = runner.place_cache(grow_cache(
+            runner.place_slot_cache(cache), total - cache_len_of(cache)))
         out = [tokens]
         cur = sample(logits)[:, None]
         for i in range(scfg.max_new_tokens):
@@ -231,7 +354,7 @@ def _gather_ctx(cache: dict, pages) -> dict:
             "prefix sharing needs an all-pool cache (attn, mla)"
         idx = torch.as_tensor(np.asarray(pages, np.int64),
                               device=leaf.device)
-        g = leaf[:, idx]
+        g = take_whole(leaf, 1, idx)
         out[key] = g.reshape((g.shape[0], 1, g.shape[1] * g.shape[2])
                              + tuple(g.shape[3:]))
     return out
@@ -291,7 +414,8 @@ def _prefill_request(runner: _Runner, tokens: np.ndarray, dev, bucket: bool,
     """Prefill one prompt: on a trie match (``info``) only the suffix,
     against the gathered ``ctx`` (a match of no pages is none);
     pow2-bucketed when ``bucket``.
-    Returns (logits, single-request cache, tokens prefilled)."""
+    Returns (logits, single-request cache (whole on a mesh), tokens
+    prefilled)."""
     plen = int(tokens.shape[0])
     if info is not None and info.shared_pages:
         sstart = info.suffix_start
@@ -302,15 +426,17 @@ def _prefill_request(runner: _Runner, tokens: np.ndarray, dev, bucket: bool,
         logits, req_cache = runner.prefill_partial(
             torch.as_tensor(suffix, device=dev)[None], ctx, start=sstart,
             last_pos=s_real - 1)
-        return logits, req_cache, int(suffix.shape[0])
-    if bucket:
+        n = int(suffix.shape[0])
+    elif bucket:
         padded = np.pad(tokens, [(0, bucket_len(plen) - plen)])
         logits, req_cache = runner.prefill(
             torch.as_tensor(padded, device=dev)[None], last_pos=plen - 1)
-        return logits, req_cache, int(padded.shape[0])
-    logits, req_cache = runner.prefill(
-        torch.as_tensor(tokens, device=dev)[None])
-    return logits, req_cache, plen
+        n = int(padded.shape[0])
+    else:
+        logits, req_cache = runner.prefill(
+            torch.as_tensor(tokens, device=dev)[None])
+        n = plen
+    return logits, runner.place_slot_cache(req_cache), n
 
 
 def _insert_prefilled(cache: dict, pool: PagePool, slot: int,
@@ -361,7 +487,7 @@ def _paged_step(runner: _Runner, cache: dict, cur: torch.Tensor,
 
 def serve_continuous(params, cfg: ModelConfig, requests: list[Request],
                      config: EngineConfig | None = None, *, mesh=None,
-                     generator: torch.Generator | None = None,
+                     policy=None, generator: torch.Generator | None = None,
                      device=None) -> ServeResult:
     """Serve ``requests`` (mixed prompt lengths, arriving over time)
     through ``config.n_slots`` continuously-batched decode slots.
@@ -419,8 +545,12 @@ def serve_continuous(params, cfg: ModelConfig, requests: list[Request],
     lifecycle spans (queue wait -> prefill -> TTFT -> decode), per-step
     spans and pool/occupancy gauge timelines, as the JAX engine does.
 
-    ``mesh=`` raises ``NotImplementedError``: it waits for the multi-GPU
-    slice.
+    With ``mesh=`` (or the active Rules' mesh; ``policy=`` a
+    ``ShardingPolicy``), called alike on every rank with the whole trace,
+    the parameters, caches and batch run placed on the mesh
+    (:class:`_Runner`; a pool's pages split over "data" where their count,
+    scratch page included, divides) and every rank returns the one-device
+    tokens; ``stats["sharded"]`` says so.
     """
     if cfg.n_codebooks:
         raise NotImplementedError(
@@ -430,13 +560,10 @@ def serve_continuous(params, cfg: ModelConfig, requests: list[Request],
     # invalid combinations (prefix_cache without paged, ...) raise
     # ValueError inside EngineConfig.__post_init__
     config = resolve_config(config, caller="serve_continuous")
-    if mesh is not None:
-        raise NotImplementedError(
-            "serve_continuous(mesh=...) waits for the multi-GPU slice of "
-            "the port")
     if config.speculative:
         from .speculative import serve_continuous_speculative
         return serve_continuous_speculative(params, cfg, requests, config,
+                                            mesh=mesh, policy=policy,
                                             generator=generator,
                                             device=device)
     dev = resolve_device(device)
@@ -453,7 +580,8 @@ def serve_continuous(params, cfg: ModelConfig, requests: list[Request],
         stats.update(cache_len=0, tokens_per_sec=0.0, paged=paged,
                      bucketed_prefill=bucket, prefix_cache=prefix,
                      prefill_tokens=0, compile_time_s=0.0,
-                     steady_tokens_per_sec=0.0, sharded=False)
+                     steady_tokens_per_sec=0.0,
+                     sharded=_resolve_mesh(mesh) is not None)
         if paged:
             stats["paging"] = PagePool(
                 page_size, 1 if pool_pages is None else pool_pages,
@@ -463,7 +591,7 @@ def serve_continuous(params, cfg: ModelConfig, requests: list[Request],
     cache_len = _trace_cache_len(cache_len, requests)
 
     params = _to_device(params, dev)
-    runner = _Runner(params, cfg)
+    runner = _Runner(params, cfg, mesh, policy)
     if generator is None and temperature > 0.0:
         generator = torch.Generator(device=dev).manual_seed(0)
     sample = _sampler(temperature, generator)
@@ -487,6 +615,7 @@ def serve_continuous(params, cfg: ModelConfig, requests: list[Request],
                                     dtype, dev)
     else:
         cache = LM.init_cache(cfg, n_slots, cache_len, dtype, dev)
+    cache = runner.place_cache(cache, paged=paged)
     cur = torch.zeros((n_slots, 1), dtype=torch.int32, device=dev)
 
     prefill_tokens = 0
@@ -647,16 +776,12 @@ def serve_continuous(params, cfg: ModelConfig, requests: list[Request],
     stats["compile_time_s"] = round(compile_ns / 1e9, 6)
     stats["steady_tokens_per_sec"] = round(
         steady_tokens / (steady_ns / 1e9), 3) if steady_ns > 0 else 0.0
-    stats["sharded"] = False
+    stats["sharded"] = runner.mesh is not None
     return ServeResult(sched.results, stats, wall)
 
 
 def _to_device(tree, dev):
-    if isinstance(tree, dict):
-        return {k: _to_device(v, dev) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(_to_device(v, dev) for v in tree)
-    return tree.to(dev)
+    return _map_tree(lambda t: t.to(dev), tree)
 
 
 def _resolve_mesh(mesh):

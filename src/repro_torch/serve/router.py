@@ -228,7 +228,7 @@ class Router:
                                  step_time_us=self.step_time_us)
 
     def serve(self, params, cfg, requests: list[Request], *, mesh=None,
-              generator: torch.Generator | None = None,
+              policy=None, generator: torch.Generator | None = None,
               device=None) -> RouterResult:
         """Route, then run the engine per replica on ``device`` (``None``
         means the card); merge the results.
@@ -237,15 +237,12 @@ class Router:
         trace (greedy decoding does not depend on the replica). At
         ``temperature > 0`` every replica draws from a generator in
         ``generator``'s starting state (JAX hands every replica the same
-        key), which is left as it was; ``mesh=`` raises
-        ``NotImplementedError``: it waits for the multi-GPU slice."""
+        key), which is left as it was. ``mesh=`` and ``policy=`` pass
+        through to every replica's engine, as JAX's do (each replica then
+        runs on that mesh, one after the other)."""
         from .disagg import serve_disaggregated
         from .engine import serve_continuous
 
-        if mesh is not None:
-            raise NotImplementedError(
-                "Router.serve(mesh=...) waits for the multi-GPU slice of "
-                "the port")
         engine_fn = (serve_disaggregated if self.engine == "disagg"
                      else serve_continuous)
         state = generator.get_state() if generator is not None else None
@@ -263,8 +260,8 @@ class Router:
                 gen = torch.Generator(device=generator.device)
                 gen.set_state(state)
             t_r = time.perf_counter_ns()
-            res = engine_fn(params, cfg, sub, self.config, generator=gen,
-                            device=device)
+            res = engine_fn(params, cfg, sub, self.config, mesh=mesh,
+                            policy=policy, generator=gen, device=device)
             if tr is not None:
                 tr.complete("serve/router/replica", t_r,
                             time.perf_counter_ns() - t_r,

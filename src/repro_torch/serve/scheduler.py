@@ -20,7 +20,11 @@ A port of ``repro.serve.scheduler``:
   :func:`insert_paged_span` and :func:`copy_page_cache` for the prefix
   cache. They write the batch cache in place and return it (JAX's
   donated jit returns a new tree), which saves a copy of the whole cache
-  per admission and eviction.
+  per admission and eviction. On a mesh the batch cache's leaves are
+  DTensors (``dist.rules.cache_specs``: slots or pool pages over "data",
+  a contiguous cache's time and the SSM state's heads over "model") and
+  each rank writes only what its part holds, at local indices
+  (``dist.api.write_parts``); the request caches arrive whole.
 """
 from __future__ import annotations
 
@@ -31,6 +35,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.dist.api import take_whole, whole, write_parts
 from repro_torch.obs import metrics as obs_metrics, trace as obs_trace
 
 # cache leaves carrying a (L, B, T, ...) time dimension at axis 2
@@ -115,7 +120,12 @@ def _write_slot(b: torch.Tensor, u: torch.Tensor, slot: int) -> None:
     time extent; the conv state of a prompt of fewer than ``conv_k - 1``
     tokens, 1 row of 3) fills the leading rows and leaves the rest as
     they were."""
-    b[:, slot, :u.shape[2]] = u[:, 0].to(b.dtype)
+    write_parts(b, (torch.tensor([[slot]]), torch.arange(u.shape[2])[None]),
+                whole(u).to(b.dtype), first=1)
+
+
+def _zero_slot(b: torch.Tensor, slot: int) -> None:
+    write_parts(b, (torch.tensor([slot]),), 0, first=1)
 
 
 def insert_slot_cache(batch_cache: dict, slot_cache: dict,
@@ -138,7 +148,7 @@ def evict_slot(batch_cache: dict, slot: int) -> dict:
     clears carried state, so nothing of a finished request survives into
     the slot's next tenant. Returns ``batch_cache``."""
     for _, b in _leaves(batch_cache):
-        b[:, slot] = 0
+        _zero_slot(b, slot)
     return batch_cache
 
 
@@ -168,9 +178,9 @@ def insert_paged_cache(batch_cache: dict, slot_cache: dict, phys_pages,
             l, psz = b.shape[0], b.shape[2]
             phys = torch.as_tensor(np.asarray(phys_pages, np.int64),
                                    device=b.device)
-            pages = u[:, 0].reshape((l, phys.shape[0], psz)
-                                    + tuple(u.shape[3:]))
-            b[:, phys] = pages.to(b.dtype)
+            pages = whole(u)[:, 0].reshape((l, phys.shape[0], psz)
+                                           + tuple(u.shape[3:]))
+            write_parts(b, (phys,), pages.to(b.dtype), first=1)
         else:
             _write_slot(b, u, slot)
     return batch_cache
@@ -202,7 +212,8 @@ def insert_paged_span(batch_cache: dict, suffix_cache: dict, row,
             logical = torch.clamp(posv // psz, 0, r.shape[0] - 1)
             page = torch.where(idx < length, r[logical],
                                torch.full_like(idx, scratch))
-            b[:, page, posv % psz] = u[:, 0].to(b.dtype)
+            write_parts(b, (page, posv % psz), whole(u)[:, 0].to(b.dtype),
+                        first=1)
         else:
             _write_slot(b, u, slot)
     return batch_cache
@@ -213,10 +224,13 @@ def copy_page_cache(batch_cache: dict, src: int, dst: int) -> dict:
     into ``dst`` across every pool (time) leaf. The engine calls this with
     the pair ``PagePool.cow_if_needed`` returns, BEFORE the first write
     into the slot's divergence page, so the shared original keeps serving
-    its other readers untouched. Returns ``batch_cache``."""
+    its other readers untouched. Returns ``batch_cache``. On a pool split
+    over "data" the page ``src`` comes from the rank that holds it (one
+    all-reduce of that page) and the rank that holds ``dst`` writes it."""
     for key, b in _leaves(batch_cache):
         if key in _TIME_KEYS:
-            b[:, dst] = b[:, src]
+            write_parts(b, (torch.tensor([dst]),),
+                        take_whole(b, 1, torch.tensor([src])), first=1)
     return batch_cache
 
 
@@ -228,7 +242,7 @@ def evict_slot_state(batch_cache: dict, slot: int) -> dict:
     zero (serve.paging module docstring). Returns ``batch_cache``."""
     for key, b in _leaves(batch_cache):
         if key not in _TIME_KEYS:
-            b[:, slot] = 0
+            _zero_slot(b, slot)
     return batch_cache
 
 

@@ -49,8 +49,8 @@ from repro_torch.obs import metrics as obs_metrics, trace as obs_trace
 
 from .config import EngineConfig
 from .engine import (
-    ServeResult, _Runner, _check_text_inputs, _insert_prefilled, _sampler,
-    _to_device, bucket_len,
+    ServeResult, _Runner, _check_text_inputs, _insert_prefilled,
+    _resolve_mesh, _sampler, _to_device, bucket_len,
 )
 from .paging import PagePool, pages_for
 from .scheduler import (
@@ -213,12 +213,15 @@ def _check_model(cfg: ModelConfig) -> None:
             f"(attn/mla), not mixer={cfg.mixer!r}")
 
 
-def _runners(params, cfg: ModelConfig, rate: float, dev):
-    """Target and draft runners. The draft shares the target's fp32 head:
-    the projection never touches embeddings or heads."""
+def _runners(params, cfg: ModelConfig, rate: float, dev, mesh=None,
+             policy=None):
+    """Target and draft runners, both on ``mesh``. The draft shares the
+    target's fp32 head (the projection never touches embeddings or
+    heads), and at rate 0 the target's (placed) parameters."""
     params = _to_device(params, dev)
-    tgt = _Runner(params, cfg)
-    drf = _Runner(derive_draft_params(params, rate), cfg, head=tgt.head)
+    tgt = _Runner(params, cfg, mesh, policy)
+    draft = tgt.params if rate <= 0.0 else derive_draft_params(params, rate)
+    drf = _Runner(draft, cfg, mesh, policy, head=tgt.head)
     return tgt, drf
 
 
@@ -229,13 +232,15 @@ def _runners(params, cfg: ModelConfig, rate: float, dev):
 def generate_speculative(params, cfg: ModelConfig, tokens,
                          scfg: EngineConfig,
                          generator: torch.Generator | None = None, *,
+                         mesh=None, policy=None,
                          device=None) -> torch.Tensor:
     """Speculative twin of :func:`repro_torch.serve.engine.generate`:
     the same (B, S+new) output, token for token identical at temperature
     0. Contiguous caches for both models; per-row frontiers advance by
     variable acceptance, rows re-verify harmlessly once done. The first
     token is drawn from ``generator``; every later draw is keyed by
-    ``generator.initial_seed()`` (0 without one)."""
+    ``generator.initial_seed()`` (0 without one). With ``mesh=`` both
+    runners (target and draft) run on the mesh, as ``generate``'s does."""
     _check_model(cfg)
     dev = resolve_device(device)
     tokens = torch.as_tensor(tokens, device=dev).long()
@@ -249,13 +254,16 @@ def generate_speculative(params, cfg: ModelConfig, tokens,
     if generator is None and temperature > 0.0:
         generator = torch.Generator(device=dev).manual_seed(0)
     base = generator.initial_seed() if generator is not None else 0
-    tgt, drf = _runners(params, cfg, scfg.draft_prune_rate, dev)
+    tgt, drf = _runners(params, cfg, scfg.draft_prune_rate, dev, mesh,
+                        policy)
 
     with torch.no_grad():
         t_log, t_cache = tgt.prefill(tokens)
-        t_cache = grow_cache(t_cache, total - cache_len_of(t_cache))
+        t_cache = tgt.place_cache(grow_cache(
+            tgt.place_slot_cache(t_cache), total - cache_len_of(t_cache)))
         _, d_cache = drf.prefill(tokens)
-        d_cache = grow_cache(d_cache, total - cache_len_of(d_cache))
+        d_cache = drf.place_cache(grow_cache(
+            drf.place_slot_cache(d_cache), total - cache_len_of(d_cache)))
 
         first = _sampler(temperature, generator)(t_log).cpu().numpy()
         out = [[int(t)] for t in first]
@@ -304,7 +312,8 @@ def _spec_stats(scfg: EngineConfig, rounds: int, proposed: int,
 # ---------------------------------------------------------------------------
 
 def serve_continuous_speculative(params, cfg: ModelConfig, requests,
-                                 config: EngineConfig, *,
+                                 config: EngineConfig, *, mesh=None,
+                                 policy=None,
                                  generator: torch.Generator | None = None,
                                  device=None) -> ServeResult:
     """Speculative twin of ``serve_continuous`` (dispatched from there
@@ -313,7 +322,8 @@ def serve_continuous_speculative(params, cfg: ModelConfig, requests,
     temperature-0 tokens are identical to it. Requires ``paged=True``:
     per-slot variable acceptance is a page-table rollback
     (``PagePool.truncate``). The verify step carries k+1 queries, so it
-    takes the gather path even with ``use_kernel=True``."""
+    takes the gather path even with ``use_kernel=True``. With ``mesh=``
+    both runners run on the mesh, as ``serve_continuous``'s does."""
     _check_model(cfg)
     if not config.paged:
         raise ValueError("speculative serve_continuous requires "
@@ -331,7 +341,8 @@ def serve_continuous_speculative(params, cfg: ModelConfig, requests,
         stats.update(cache_len=0, tokens_per_sec=0.0, paged=True,
                      bucketed_prefill=bucket, prefix_cache=False,
                      prefill_tokens=0, compile_time_s=0.0,
-                     steady_tokens_per_sec=0.0, sharded=False,
+                     steady_tokens_per_sec=0.0,
+                     sharded=_resolve_mesh(mesh) is not None,
                      speculative=_spec_stats(config, 0, 0, 0))
         stats["paging"] = PagePool(
             page_size, 1 if pool_pages is None else pool_pages,
@@ -348,7 +359,8 @@ def serve_continuous_speculative(params, cfg: ModelConfig, requests,
             f"cache_len={cache_len} cannot hold request(s) "
             f"{[r.rid for r in short]}")
 
-    tgt, drf = _runners(params, cfg, config.draft_prune_rate, dev)
+    tgt, drf = _runners(params, cfg, config.draft_prune_rate, dev, mesh,
+                        policy)
     if generator is None and temperature > 0.0:
         generator = torch.Generator(device=dev).manual_seed(0)
     sample = _sampler(temperature, generator)
@@ -370,10 +382,11 @@ def serve_continuous_speculative(params, cfg: ModelConfig, requests,
         sched.submit(r)
 
     dtype = getattr(torch, cfg.dtype)
-    t_cache = LM.init_paged_cache(cfg, pool.n_pages, page_size, n_slots,
-                                  dtype, dev)
+    t_cache = tgt.place_cache(LM.init_paged_cache(
+        cfg, pool.n_pages, page_size, n_slots, dtype, dev), paged=True)
     # contiguous draft cache, + k slack for the round's proposal writes
-    d_cache = LM.init_cache(cfg, n_slots, cache_len + k, dtype, dev)
+    d_cache = drf.place_cache(LM.init_cache(cfg, n_slots, cache_len + k,
+                                            dtype, dev))
     cur = np.zeros(n_slots, np.int64)
     rid_of = np.zeros(n_slots, np.int64)
     tr = obs_trace.get()
@@ -406,10 +419,12 @@ def serve_continuous_speculative(params, cfg: ModelConfig, requests,
                 if tgt.last_cold:
                     compile_ns += time.perf_counter_ns() - t_pf
                 if sched.started(slot, first):
-                    t_cache = _insert_prefilled(t_cache, pool, slot,
-                                                req_cache, toks)
+                    t_cache = _insert_prefilled(
+                        t_cache, pool, slot, tgt.place_slot_cache(req_cache),
+                        toks)
                     d_cache = insert_slot_cache(
-                        d_cache, fit_cache_len(d_req, plen), slot)
+                        d_cache, fit_cache_len(drf.place_slot_cache(d_req),
+                                               plen), slot)
                     cur[slot] = first
                     rid_of[slot] = req.rid
             active = sched.active_mask()
@@ -483,7 +498,7 @@ def serve_continuous_speculative(params, cfg: ModelConfig, requests,
     stats["compile_time_s"] = round(compile_ns / 1e9, 6)
     stats["steady_tokens_per_sec"] = round(
         steady_tokens / (steady_ns / 1e9), 3) if steady_ns > 0 else 0.0
-    stats["sharded"] = False
+    stats["sharded"] = tgt.mesh is not None
     stats["speculative"] = _spec_stats(config, rounds, proposed, accepted)
     stats["paging"] = pool.summary()
     return ServeResult(sched.results, stats, wall)

@@ -31,7 +31,6 @@ masks) count as replicated.
 """
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import time
 from typing import Any, Callable
@@ -42,7 +41,7 @@ import torch
 from repro_torch import _tree
 from repro_torch.core import admm_finalize, admm_init, admm_penalty, \
     admm_update
-from repro_torch.dist.api import is_dtensor, whole
+from repro_torch.dist.api import is_dtensor, plain_as_replicated, whole
 from repro_torch.dist.compress import compress, compress_init, decompress
 from repro_torch.obs import metrics as obs_metrics, trace as obs_trace
 from repro_torch.optim import clip_by_global_norm, get_optimizer
@@ -106,10 +105,7 @@ def _mesh_scope(params):
     """Plain tensors meet DTensors in a mesh step (constants, masks, the
     learning rate): there they count as replicated."""
     leaves = next(iter(_tree.leaves(params)), [None])
-    if not is_dtensor(leaves[0]):
-        return contextlib.nullcontext()
-    from torch.distributed.tensor.experimental import implicit_replication
-    return implicit_replication()
+    return plain_as_replicated(is_dtensor(leaves[0]))
 
 
 def make_train_step(

@@ -10,8 +10,8 @@ analogue of ``test_disagg_nongreedy_parity_same_rng`` holds the two
 port engines to equal tokens from generators in the same state. The
 decode tier's paged-attention kernel runs its plain version here.
 Reduced hymba-1.5b (nested cache, no bucketing) and deepseek-v2-236b
-(MLA, MoE) go through both tiers too; their mesh cases wait for the
-multi-GPU slice."""
+(MLA, MoE) go through both tiers too; the mesh cases are in
+tests/test_torch_serve_mesh*.py."""
 import dataclasses
 
 import jax
@@ -227,8 +227,10 @@ def test_disagg_cache_len_too_short_raises(tiny):
 
 
 def test_disagg_mesh_raises(tiny):
+    """``mesh=`` takes a DeviceMesh (tests/test_torch_serve_mesh*.py
+    serve on one); anything else raises."""
     _, tcfg, _, tp = tiny
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         serve_disaggregated(tp, tcfg, [], EngineConfig(**PAGED),
                             mesh=object(), device="cpu")
 

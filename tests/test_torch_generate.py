@@ -147,8 +147,10 @@ def test_generate_rejects_unported_frontends(gemma, arch, match):
 
 
 def test_generate_mesh_raises(gemma):
+    """``mesh=`` takes a DeviceMesh (tests/test_torch_serve_mesh*.py
+    generate on one); anything else raises."""
     _, tcfg, _, tp = gemma
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         generate(tp, tcfg, np.zeros((1, 3), np.int64), mesh=object(),
                  device="cpu")
 

@@ -192,8 +192,11 @@ def test_router_restarts_the_generator_per_replica(tiny, engine):
 
 
 def test_router_mesh_raises(tiny):
+    """``mesh=`` passes through to each replica's engine, which takes a
+    DeviceMesh (tests/test_torch_serve_mesh*.py route on one); anything
+    else raises."""
     _, tcfg, _, tp = tiny
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         Router(2, EngineConfig(**PAGED)).serve(tp, tcfg, [], mesh=object(),
                                                device="cpu")
 

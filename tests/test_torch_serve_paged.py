@@ -260,8 +260,10 @@ def test_unported_options_raise(gemma, arch, match):
 
 
 def test_mesh_raises(gemma):
+    """``mesh=`` takes a DeviceMesh (tests/test_torch_serve_mesh*.py
+    serve on one); anything else raises."""
     _, tcfg, _, tp = gemma
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         serve_continuous(tp, tcfg, [], EngineConfig(paged=True),
                          mesh=object(), device="cpu")
 
