@@ -304,6 +304,32 @@ Phases, each of which raises (and the script exits nonzero) on failure:
    phase's numbers; B2's entry in the kernels line adds the launches of
    one rank of each mesh.
 
+18. The dry run held to the card (``[phase dryrun]``,
+   ``repro_torch.launch.dryrun``): (a) DRY_CELLS traced on the fake 16x16
+   mesh (a fake process group of 256 ranks, ``FakeTensorMode``) under
+   this card's torch, each ``status: ok``, with its peak bytes a device,
+   FLOPs, bytes, collectives by op and roofline terms printed; (b)
+   gemma-2b decode_32k at full width and DRY_REAL_LAYERS layers over a
+   one-rank (1, 1) mesh: the dry run's estimate, then one real step of
+   the same ``build_cell`` on the card under ``op_cost.OpCounter``: its
+   peak memory (reset after placement) within DRY_MEM_RTOL of the
+   estimate, its FLOPs equal to the trace's, its wall (CUDA events,
+   median of 5) at or above the roofline's largest term; (c) the same at
+   DRY_MESH_LAYERS layers over 1x2, two ranks sharing the card over
+   gloo: each rank's peak within DRY_MEM_RTOL of the 1x2 estimate, its
+   collectives by op equal to the trace's; (d) a bf16 matmul's TFLOP/s
+   and a device copy's GB/s beside the roofline's constants. A JSON line
+   ``{"dryrun": ...}`` holds the phase's numbers.
+
+19. Paper Algorithm 1 (``[phase progressive]``):
+   ``examples/prune_progressive_torch.py --fast`` on the card (a GRU of
+   hidden 32 over vocab 16, 8x8 blocks), each round's rate, accuracy and
+   lossless flag and the best lossless rate printed; the best lossless
+   round's model (the last round's where none was lossless) frozen to
+   ``PaddedCSB`` and evaluated on the same batches through B1, its
+   accuracy equal to the masked-dense one. B1's launches there join the
+   kernels line's.
+
 The line before the last is a JSON object with one entry per kernel (B1,
 B2, B3); the last line is ``{"ok": true, "device": {...}}``. Without CUDA the script
 exits nonzero and prints no result.
@@ -375,6 +401,9 @@ from repro_torch.serve.scheduler import (  # noqa: E402
     fit_cache_len, grow_cache, insert_paged_cache,
 )
 from repro_torch.train import TrainConfig, make_train_step, train  # noqa: E402
+from repro_torch.train.classifier import (  # noqa: E402
+    classifier_accuracy, train_classifier,
+)
 
 SEED = 0
 RATE = 1 - 1 / 13          # the paper's 13x (benchmarks/bench_latency.py)
@@ -555,6 +584,20 @@ MS_SPEC_K = 4              # speculative at draft rate 0: the target's
 MS_LOGIT_RTOL = 1e-4       # first decode step, mesh against one card
 MS_REDUCED = ("deepseek-v2-236b", "hymba-1.5b")
 MS_TIMEOUT_S = 600         # a spawned group's deadline
+# [phase dryrun]: (a) cells traced on the fake 16x16 mesh, (arch, shape,
+# layers; None: all). gemma-2b prefill_32k is left out: its blockwise
+# attention is ~250,000 eager ops a layer under fake tensors (54 s for one
+# layer on a CPU), past the phase's budget; mamba2-370m train_4k is cut
+# to 4 of its 48 layers (~20 s traced on a CPU; all 48 would be minutes)
+DRY_CELLS = (("gemma-2b", "decode_32k", None),
+             ("mamba2-370m", "decode_32k", None),
+             ("mamba2-370m", "train_4k", 4))
+DRY_REAL = ("gemma-2b", "decode_32k")   # (b) and (c)
+DRY_REAL_LAYERS = 8        # (b): one real step over a (1, 1) mesh
+DRY_MESH, DRY_MESH_LAYERS = (1, 2), 4   # (c): two ranks sharing the card
+DRY_MEM_RTOL = 0.10        # real peak against the dry run's estimate
+DRY_MATMUL_N = 8192        # (d): a bf16 N^3 product
+DRY_COPY_BYTES = 4_000_000_000          # (d): a device copy
 
 
 def card_line() -> str:
@@ -2841,76 +2884,6 @@ def _sync(dev) -> None:
         torch.cuda.synchronize(dev)
 
 
-def classifier_logits(cells, p, toks) -> torch.Tensor:
-    """tests/test_system.py's classifier: embedding, the cells one after
-    the other, a readout of the last step."""
-    xs = p["emb"][toks].transpose(0, 1)            # (T, B, emb)
-    for cell, cp in zip(cells, p["rnn"]):
-        xs, _ = rnn_scan(cell, cp, xs)
-    return xs[-1] @ p["out"]
-
-
-def classifier_loss(cells, p, toks, labels) -> torch.Tensor:
-    ll = torch.log_softmax(classifier_logits(cells, p, toks), -1)
-    return -torch.mean(torch.gather(ll, 1, labels[:, None]))
-
-
-def _batch(task, step, batch, dev):
-    b = task.batch(step, batch)
-    return (torch.from_numpy(b["tokens"]).long().to(dev),
-            torch.from_numpy(b["labels"]).long().to(dev))
-
-
-def train_classifier(cells, params, task, steps, *, specs=None, start=0,
-                     lr=PAPER_LR, batch=PAPER_BATCH, rho=ADMM_RHO,
-                     every=ADMM_EVERY) -> dict:
-    """SGD as tests/test_system.py trains: batch ``start + step`` of
-    ``task``; with ``specs`` the ADMM penalty joins the loss,
-    ``admm_update`` runs every ``every`` steps and ``admm_finalize``
-    ends the run. Returns the params (as ``trained`` those before the
-    finalize), the ADMM state, each step's loss, the residual after each
-    update and the wall ms per step (the card synchronised once, at the
-    end)."""
-    dev = params["out"].device
-    state = admm_init(params, specs, rho=rho) if specs else None
-    losses, residuals = [], []
-    _sync(dev)
-    t0 = time.perf_counter()
-    for step in range(steps):
-        toks, labels = _batch(task, start + step, batch, dev)
-        params = _tree(params, lambda t: t.detach().requires_grad_())
-        loss = classifier_loss(cells, params, toks, labels)
-        if state is not None:
-            loss = loss + admm_penalty(params, state, specs)
-        leaves = list(_leaves(params))
-        grads = iter(torch.autograd.grad(loss, leaves))
-        params = _tree(params, lambda t: (t - lr * next(grads)).detach())
-        losses.append(loss.detach())
-        if state is not None and (step + 1) % every == 0:
-            state = admm_update(params, state, specs)
-            residuals.append(residual_norm(params, state, specs))
-    _sync(dev)
-    step_ms = (time.perf_counter() - t0) * 1e3 / max(steps, 1)
-    trained = params
-    if specs:
-        params = admm_finalize(params, specs)
-    return {"params": params, "trained": trained, "state": state,
-            "losses": [float(v) for v in losses],
-            "residuals": [float(v) for v in residuals], "step_ms": step_ms}
-
-
-def classifier_accuracy(cells, params, task, start=100) -> float:
-    """tests/test_system.py's accuracy: 4 batches of 64 from ``start``."""
-    dev = params["out"].device
-    correct = 0
-    with torch.no_grad():
-        for step in range(start, start + 4):
-            toks, labels = _batch(task, step, 64, dev)
-            pred = torch.argmax(classifier_logits(cells, params, toks), -1)
-            correct += int((pred == labels).sum())
-    return correct / 256
-
-
 def gru_params(dev, seed=SEED) -> dict:
     """tests/test_system.py's GRU classifier, from a seeded generator."""
     gen = torch.Generator().manual_seed(seed)
@@ -4586,6 +4559,254 @@ def mesh_serve_phase(dev) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# The launch tooling held to the card ([phase dryrun]) and paper
+# Algorithm 1 ([phase progressive])
+# ---------------------------------------------------------------------------
+
+def dry_summary(label: str, rec: dict) -> str:
+    rl, cost, coll = rec["roofline"], rec["cost"], rec["collectives"]
+    return (f"{label}: peak {rec['memory']['peak_bytes_per_device'] / 1e9:.3f}"
+            f" GB a device, {cost['flops_per_device']:.6e} FLOPs "
+            f"({cost['dot_flops_per_device']:.6e} in products), "
+            f"{cost['bytes_per_device']:.6e} bytes, collectives "
+            f"{coll['count_by_op']} ({coll['total_bytes']:.6e} bytes); "
+            f"roofline compute {rl['t_compute'] * 1e3:.4f} ms, memory "
+            f"{rl['t_memory'] * 1e3:.4f} ms, collective "
+            f"{rl['t_collective'] * 1e3:.4f} ms, dominant {rl['dominant']}; "
+            f"traced in {rec['trace_s']} s")
+
+
+def dry_run(arch, shape, layers=None, mesh_shape=None) -> dict:
+    """``launch.dryrun.run_cell`` on fake ranks; raises unless ok."""
+    from repro_torch.launch.dryrun import run_cell
+    rec = run_cell(arch, shape, save=False, mesh_shape=mesh_shape,
+                   extra_over=None if layers is None
+                   else {"n_layers": layers})
+    if rec["status"] != "ok":
+        print(rec.get("traceback", ""), file=sys.stderr)
+        raise AssertionError(f"dry run of {arch} {shape} (layers "
+                             f"{layers or 'all'}, mesh {rec['mesh']}): "
+                             f"{rec['status']} {rec.get('error')}")
+    return rec
+
+
+def dry_real_step(mesh, arch, shape, layers, reps=0) -> dict:
+    """The dry run's cell built by ``build_cell`` on ``mesh`` (real
+    ranks, real tensors on the card) and stepped once under
+    ``op_cost.OpCounter``: the peak memory above what was allocated
+    before the cell was built (the peak reset after placement), the
+    FLOPs and the collectives by op; with ``reps`` also the step's wall
+    (CUDA events, median of ``reps``)."""
+    from repro_torch.dist.api import use_rules as rules_scope
+    from repro_torch.launch.dryrun import build_cell
+    from repro_torch.launch.op_cost import count
+    torch.manual_seed(SEED)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    step_fn, args, rules, _ = build_cell(arch, shape, mesh,
+                                         {"n_layers": layers})
+    torch.cuda.synchronize()
+    placed = torch.cuda.memory_allocated() - base
+    torch.cuda.reset_peak_memory_stats()
+    with rules_scope(rules):
+        _, c = count(step_fn, *args)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    rec = {"peak_bytes": peak, "placed_bytes": placed,
+           "counted_peak_bytes": c.peak_bytes, "flops": c.cost.flops,
+           "dot_flops": c.cost.dot_flops, "bytes": c.cost.bytes,
+           "coll_count": dict(c.cost.coll_count),
+           "coll_bytes": dict(c.cost.coll_bytes)}
+    if reps:
+        def step():
+            with rules_scope(rules):
+                step_fn(*args)
+        rec["wall_ms"] = median_ms(step, reps=reps, warm=1)
+    del args
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def dry_mesh_rank(mesh, arch, shape, layers) -> dict:
+    """(c) on every rank: :func:`dry_real_step` on this rank's card."""
+    return dry_real_step(mesh, arch, shape, layers)
+
+
+def attained_peaks(dev) -> dict:
+    """(d): a bf16 DRY_MATMUL_N^3 ``torch.matmul`` in TFLOP/s and a
+    DRY_COPY_BYTES device copy in GB/s (bytes read + written over the
+    time), each beside the card's name and power limit."""
+    n = DRY_MATMUL_N
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    a = torch.randn(n, n, generator=gen, device=dev, dtype=torch.bfloat16)
+    b = torch.randn(n, n, generator=gen, device=dev, dtype=torch.bfloat16)
+    mm_ms = median_ms(lambda: torch.matmul(a, b), reps=20, warm=3)
+    del a, b
+    src = torch.empty(DRY_COPY_BYTES, dtype=torch.uint8, device=dev)
+    dst = torch.empty_like(src)
+    cp_ms = median_ms(lambda: dst.copy_(src), reps=20, warm=3)
+    del src, dst
+    torch.cuda.empty_cache()
+    from repro_torch.launch import roofline as RL
+    out = {"matmul_tflops": 2 * n ** 3 / (mm_ms * 1e-3) / 1e12,
+           "matmul_ms": mm_ms,
+           "copy_gbps": 2 * DRY_COPY_BYTES / (cp_ms * 1e-3) / 1e9,
+           "copy_ms": cp_ms, "card": card_line()}
+    print(f"  (d) attained: bf16 {n}^3 matmul {out['matmul_tflops']:.1f} "
+          f"TFLOP/s ({mm_ms:.3f} ms; roofline's peak "
+          f"{RL.PEAK_FLOPS / 1e12:.0f}), {DRY_COPY_BYTES / 1e9:.0f} GB copy "
+          f"{out['copy_gbps']:.1f} GB/s read + write ({cp_ms:.3f} ms; "
+          f"roofline's HBM rate {RL.HBM_BW / 1e9:.0f}); card {out['card']}")
+    return out
+
+
+def dryrun_phase(dev) -> dict:
+    """The dry run (``launch.dryrun``) held to the card. (a) DRY_CELLS
+    over the fake 16x16 mesh under this card's torch; (b) gemma-2b
+    decode_32k at DRY_REAL_LAYERS layers over a one-rank (1, 1) mesh:
+    the dry run's estimate first (its fake group before the real one),
+    then one real step, its peak within DRY_MEM_RTOL of the estimate,
+    its FLOPs equal to the trace's and its wall at or above the
+    roofline's largest term; (c) the same cell at DRY_MESH_LAYERS layers
+    over 1x2, two ranks sharing the card over gloo: each rank's peak
+    within DRY_MEM_RTOL of the 1x2 estimate, the collectives by op equal
+    to the trace's; (d) attained peaks beside the roofline's constants."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+    t = [time.perf_counter()]
+    cells = {}
+    for arch, shape, layers in DRY_CELLS:
+        rec = dry_run(arch, shape, layers)
+        key = f"{arch} {shape}" + (f" ({layers} layers)" if layers else "")
+        print(f"  (a) {dry_summary(key, rec)}")
+        cells[key] = {k: rec[k] for k in ("memory", "cost", "collectives",
+                                          "roofline", "trace_s")}
+    t.append(time.perf_counter())
+
+    arch, shape = DRY_REAL
+    est = dry_run(arch, shape, DRY_REAL_LAYERS, mesh_shape=(1, 1))
+    print(f"  (b) estimate: {dry_summary(f'{arch} {shape} at {DRY_REAL_LAYERS} layers, 1x1', est)}")
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        mesh = DeviceMesh("cuda", torch.arange(1).reshape(1, 1),
+                          mesh_dim_names=("data", "model"))
+        real = dry_real_step(mesh, arch, shape, DRY_REAL_LAYERS, reps=5)
+    finally:
+        dist.destroy_process_group()
+    want = est["memory"]["peak_bytes_per_device"]
+    rl = est["roofline"]
+    top = max(rl["t_compute"], rl["t_memory"], rl["t_collective"])
+    wall_s = real["wall_ms"] * 1e-3
+    print(f"  (b) real step: peak {real['peak_bytes'] / 1e9:.3f} GB above "
+          f"the base ({real['placed_bytes'] / 1e9:.3f} GB placed; the "
+          f"counter's own {real['counted_peak_bytes'] / 1e9:.3f} GB) against "
+          f"the estimate's {want / 1e9:.3f} GB ({real['peak_bytes'] / want:.4f}x; "
+          f"bound {DRY_MEM_RTOL}); FLOPs {real['flops']:.6e} (trace "
+          f"{est['cost']['flops_per_device']:.6e}); wall {real['wall_ms']:.3f} "
+          f"ms (median of 5), roofline's largest term {top * 1e3:.3f} ms "
+          f"({est['roofline']['dominant']}), wall / memory term "
+          f"{wall_s / rl['t_memory']:.3f}")
+    if abs(real["peak_bytes"] - want) > DRY_MEM_RTOL * want:
+        raise AssertionError(f"(b) peak {real['peak_bytes']} bytes, the dry "
+                             f"run estimated {want}")
+    if real["flops"] != est["cost"]["flops_per_device"]:
+        raise AssertionError(f"(b) the real step counted {real['flops']} "
+                             f"FLOPs, the trace {est['cost']['flops_per_device']}")
+    if wall_s < top:
+        raise AssertionError(f"(b) wall {wall_s} s below the roofline's "
+                             f"largest term {top} s")
+    t.append(time.perf_counter())
+
+    est2 = dry_run(arch, shape, DRY_MESH_LAYERS, mesh_shape=DRY_MESH)
+    print(f"  (c) estimate: {dry_summary(f'{arch} {shape} at {DRY_MESH_LAYERS} layers, 1x2', est2)}")
+    ranks = spawn_ranks(dry_mesh_rank, DRY_MESH, arch, shape,
+                        DRY_MESH_LAYERS, timeout_s=MS_TIMEOUT_S)
+    want2 = est2["memory"]["peak_bytes_per_device"]
+    coll = {k: int(v) for k, v in est2["collectives"]["count_by_op"].items()}
+    for r, got in enumerate(ranks):
+        print(f"  (c) rank {r}: peak {got['peak_bytes'] / 1e9:.3f} GB "
+              f"({got['peak_bytes'] / want2:.4f}x the estimate's "
+              f"{want2 / 1e9:.3f} GB), collectives {got['coll_count']} "
+              f"(trace {coll}), FLOPs {got['flops']:.6e} (trace "
+              f"{est2['cost']['flops_per_device']:.6e})")
+        if abs(got["peak_bytes"] - want2) > DRY_MEM_RTOL * want2:
+            raise AssertionError(f"(c) rank {r} peak {got['peak_bytes']} "
+                                 f"bytes, the dry run estimated {want2}")
+        if {k: int(v) for k, v in got["coll_count"].items()} != coll:
+            raise AssertionError(f"(c) rank {r} collectives "
+                                 f"{got['coll_count']}, the trace {coll}")
+    t.append(time.perf_counter())
+    peaks = attained_peaks(dev)
+    t.append(time.perf_counter())
+    secs = [b - a for a, b in zip(t, t[1:])]
+    print(f"  dryrun phase: (a) {secs[0]:.1f} s, (b) {secs[1]:.1f} s, (c) "
+          f"{secs[2]:.1f} s, (d) {secs[3]:.1f} s; torch {torch.__version__}; "
+          f"card {card_line()}")
+    out = {"cells": cells,
+           "real_1x1": {"estimate_peak_bytes": want,
+                        "estimate_flops": est["cost"]["flops_per_device"],
+                        "roofline": rl, **real},
+           "real_1x2": {"estimate_peak_bytes": want2,
+                        "estimate_coll_count": coll, "ranks": ranks},
+           "attained": peaks, "part_s": secs}
+    print(json.dumps({"dryrun": out}))
+    return out
+
+
+def progressive_phase(dev) -> dict:
+    """``examples/prune_progressive_torch.py --fast`` on the card (paper
+    Algorithm 1: a GRU of hidden 32 over vocab 16, 8x8 blocks), then the
+    best lossless round's model (the last round's where none was
+    lossless) frozen to ``PaddedCSB`` and evaluated on the same batches
+    through B1: its accuracy must equal the masked-dense one."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "examples"))
+    import prune_progressive_torch as ex
+    from repro_torch.train.classifier import nested_params
+    res = ex.main(["--fast"])
+    hist, ctl = res["history"], res["controller"]
+    for rate, acc, ok in hist:
+        print(f"  round: rate {rate:.4f}, accuracy {acc:.4f}, "
+              f"{'lossless' if ok else 'over-pruned'}")
+    best = [i for i, (rate, _, ok) in enumerate(hist)
+            if ok and rate == ctl.best_lossless_rate]
+    pick = best[-1] if best else len(hist) - 1
+    rate, acc, _ = hist[pick]
+    model = res["models"][pick]
+    specs = ex.pruned_specs(model, rate)
+    csb = dict(model)
+    for k, spec in specs.items():
+        if spec is not None:
+            rm, cm = csb_masks(model[k], spec)
+            csb[k] = padded_csb_from_dense(model[k], spec.bm, spec.bn,
+                                           row_mask=rm, col_mask=cm,
+                                           device=dev)
+    task = SeqClassifyTask(vocab=16, n_classes=4, seq_len=12, seed=ex.SEED)
+    cells = [res["cell"]]
+    dense_acc = classifier_accuracy(cells, nested_params(model), task,
+                                    start=200)
+    start = csb_mvm.LAUNCHES
+    csb_acc = classifier_accuracy(cells, nested_params(csb), task, start=200)
+    launches = csb_mvm.LAUNCHES - start
+    print(f"  best lossless rate {ctl.best_lossless_rate:.4f} "
+          f"({ctl.best_compression:.2f}x); frozen: round {pick} (rate "
+          f"{rate:.4f}, {'lossless' if best else 'none lossless: the last'})"
+          f", masked-dense accuracy {dense_acc:.4f}, through B1 "
+          f"{csb_acc:.4f} ({launches} B1 launches)")
+    if dense_acc != acc or csb_acc != dense_acc or launches == 0:
+        raise AssertionError(f"progressive: round accuracy {acc}, masked "
+                             f"dense {dense_acc}, through B1 {csb_acc} "
+                             f"({launches} launches)")
+    out = {"rounds": [list(h) for h in hist],
+           "best_lossless_rate": ctl.best_lossless_rate,
+           "baseline": res["baseline"], "frozen_round": pick,
+           "csb_accuracy": csb_acc, "launches": launches}
+    print(json.dumps({"progressive": out}))
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA device; none is available",
@@ -4648,10 +4869,14 @@ def main() -> int:
     phase("mesh-train", mesh_train_phase, dev,
           tr["full"]["losses"][:MESH_STEPS])
     ms = phase("mesh-serve", mesh_serve_phase, dev)
+    phase("dryrun", dryrun_phase, dev)
+    pg = phase("progressive", progressive_phase, dev)
     print(f"[total {time.perf_counter() - t_start:.1f} s]")
     print(json.dumps({"kernels": [{
         **KERNEL, "launches": (sl["launches"] + pp["launches"]
-                               + tr["admm"]["b1_launches"]),
+                               + tr["admm"]["b1_launches"]
+                               + pg["launches"]),
+        "progressive_launches": pg["launches"],
         "max_abs_err": max(max_err, pp["lm_ffn"]["max_abs_err"]),
         "train_launches": tr["admm"]["b1_launches"],
         "train_max_abs_err": tr["admm"]["max_abs_err"],

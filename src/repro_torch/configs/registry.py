@@ -1,16 +1,13 @@
-"""Architecture registry: ``--arch <id>`` resolution.
-
-A copy of ``repro.configs.registry``'s ``get_config``, ``get_reduced``,
-``ARCH_IDS``, ``cell_is_runnable``, ``sharding_policy`` and
-``train_microbatches``. ``shape_overrides`` and ``all_cells`` come with
-the launch tooling (ROADMAP item 23).
-"""
+"""Architecture registry: ``--arch <id>`` resolution and per-cell policy,
+a copy of ``repro.configs.registry``."""
 from __future__ import annotations
 
 import importlib
 
 from repro_torch.dist.rules import ShardingPolicy
-from repro_torch.models.config import SUBQUADRATIC, ModelConfig, reduced
+from repro_torch.models.config import (
+    SHAPES, SUBQUADRATIC, ModelConfig, reduced,
+)
 
 _MODULES = {
     "mamba2-370m": "mamba2_370m",
@@ -45,6 +42,18 @@ def cell_is_runnable(arch: str, shape: str) -> bool:
     return True
 
 
+def shape_overrides(arch: str, shape: str) -> dict:
+    """Config adjustments a given cell needs (e.g. hymba long-context
+    window; moe dispatch chunk tuning for the huge-token cells)."""
+    over: dict = {}
+    cfg = get_config(arch)
+    if shape == "long_500k" and cfg.mixer == "hybrid":
+        over["window"] = 2048
+    if shape == "train_4k" and cfg.ffn == "moe":
+        over["moe_chunk"] = 4096
+    return over
+
+
 def sharding_policy(arch: str, shape: str) -> ShardingPolicy:
     """Per-cell distribution policy."""
     cfg = get_config(arch)
@@ -65,3 +74,8 @@ def train_microbatches(arch: str) -> int:
     if cfg.param_count() > 1e10:
         return 8
     return 4
+
+
+def all_cells() -> list[tuple[str, str]]:
+    """The 40 assigned (arch x shape) cells, including recorded skips."""
+    return [(a, s) for a in ARCH_IDS for s in SHAPES]

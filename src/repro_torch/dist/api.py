@@ -228,6 +228,83 @@ def along(x, dims, fn):
     return _wrap(fn(_contiguous_grad(x.to_local())), x.device_mesh, pls)
 
 
+def split_last(x, sizes):
+    """``x`` with its last dim split into ``sizes``
+    (``x.reshape(*x.shape[:-1], *sizes)``). On a DTensor whose last dim
+    is split over ranks whose count does not divide ``sizes[0]`` (8 heads
+    over a 16-way "model" axis), that dim is made whole first: DTensor
+    cannot unflatten a split that falls inside one head (GSPMD
+    reshards there too)."""
+    if is_dtensor(x) and sizes[0] > 1:
+        mesh, last = x.device_mesh, x.ndim - 1
+        n = math.prod(mesh.size(i) for i, p in enumerate(x.placements)
+                      if p.is_shard() and p.dim % x.ndim == last)
+        if sizes[0] % n:
+            x = x.redistribute(mesh, _whole_dims(x, {last}))
+    return x.reshape(*x.shape[:-1], *sizes)
+
+
+class _MergeLast(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        ctx.tail = tuple(x.shape[-2:])
+        return x.reshape(*x.shape[:-2], -1)
+
+    @staticmethod
+    def backward(ctx, g):
+        return split_last(g, ctx.tail)
+
+
+def merge_last(x):
+    """``x`` with its last two dims merged into one, the inverse of
+    :func:`split_last`, whose gradient goes back through
+    :func:`split_last`: a DTensor gradient can arrive split over ranks
+    that do not divide the first of the two (a row-parallel projection's
+    input gradient over 8 heads at 16-way)."""
+    if is_dtensor(x) and x.requires_grad:
+        return _MergeLast.apply(x)
+    return x.reshape(*x.shape[:-2], -1)
+
+
+def _inner_split(x) -> bool:
+    inner = set(range(1, x.ndim - 1))
+    return any(p.is_shard() and p.dim % x.ndim in inner
+               for p in x.placements)
+
+
+def _rows_whole(x):
+    if not is_dtensor(x) or x.ndim <= 2 or not _inner_split(x):
+        return x
+    return x.redistribute(x.device_mesh,
+                          _whole_dims(x, set(range(1, x.ndim - 1))))
+
+
+class _RowsWholeGrad(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _rows_whole(g)
+
+
+def rows_whole(x):
+    """The DTensor ``x`` with every split of its inner dims (all but the
+    first and the last) made whole, and so its gradient on the way back;
+    any other tensor itself. A product ``x @ w`` flattens x's leading
+    dims, and DTensor's matrix product refuses the strided split that
+    merging a split batch dim with a split sequence dim makes (the
+    residual under sequence parallelism). DTensor hands an op's gradient
+    back in the placements the op computed in, which need not be its
+    input's: a product's output gradient can arrive split along the
+    sequence too, so products pass their output through here as well."""
+    if not is_dtensor(x) or x.ndim <= 2:
+        return x
+    x = _rows_whole(x)
+    return _RowsWholeGrad.apply(x) if x.requires_grad else x
+
+
 def run_local(fn, args, placements, out_placements):
     """``fn`` on each rank's parts: every DTensor of ``args`` moved to its
     ``placements`` entry, ``fn`` called on the local tensors (any other
@@ -280,6 +357,11 @@ def part_bounds(x) -> list[tuple[int, int]]:
     return [(a, a + n) for a, n in zip(lo, size)]
 
 
+def _is_fake(t) -> bool:
+    from torch._subclasses.fake_tensor import FakeTensor
+    return isinstance(t, FakeTensor)
+
+
 def write_parts(buf, index: tuple, value, first: int = 0) -> None:
     """``buf[(:,) * first + index] = value`` in place, where ``index``
     holds one integer tensor per dim from ``first`` on (broadcast
@@ -304,12 +386,23 @@ def write_parts(buf, index: tuple, value, first: int = 0) -> None:
     for d, i in enumerate(idx, start=first):
         lo, hi = bounds[d]
         ok &= (i >= lo) & (i < hi)
-    if not bool(ok.any()):
+    anyok = ok.any()
+    # fake tensors (the dry run) hold no data: every entry counts as this
+    # rank's, the most it could write, through the same ops
+    fake = _is_fake(loc)
+    if not fake and not bool(anyok):
         return
-    local_idx = tuple(i[ok] - bounds[d][0]
+
+    def mine(t, lead):
+        if fake:
+            return t.reshape(t.shape[:lead] + (-1,)
+                             + t.shape[lead + ok.ndim:])
+        return t[(slice(None),) * lead + (ok,)]
+
+    local_idx = tuple(mine(i, 0) - bounds[d][0]
                       for d, i in enumerate(idx, start=first))
     if torch.is_tensor(value):
-        value = value[(slice(None),) * first + (ok,)]
+        value = mine(value, first)
         # trailing dims: this rank's part of each split one
         tail = first + len(index)
         for d in range(tail, buf.ndim):

@@ -1,3 +1,12 @@
-"""repro_torch.launch — entry points. ``train``: the one-card training
-launcher (``python -m repro_torch.launch.train``); the torchrun launcher
-and the dry-run tooling wait for ROADMAP item 23."""
+"""repro_torch.launch — mesh, dry run, roofline, training entry points.
+
+``train`` is the training launcher (``python -m repro_torch.launch.train``)
+and ``dryrun`` the production-mesh dry run (``python -m
+repro_torch.launch.dryrun``), which counts each cell's step with
+``op_cost`` and prices it with ``roofline``. ``dryrun`` is not imported
+here, as in the JAX package: it is an entry point.
+"""
+from .mesh import make_production_mesh, make_test_mesh
+from . import roofline
+
+__all__ = ["make_production_mesh", "make_test_mesh", "roofline"]

@@ -9,13 +9,14 @@ none, and the codebook (musicgen) and image-token (internvl2) frontends.
 from . import layers
 from .config import SHAPES, ModelConfig, ShapeConfig, reduced
 from .lm import (
-    assemble_inputs, backbone, decode_step, decode_step_paged, embed_tokens,
+    abstract_cache, abstract_paged_cache, abstract_params, assemble_inputs, backbone, decode_step, decode_step_paged, embed_tokens,
     forward_loss, head_f32, head_weight, init_cache, init_paged_cache,
     init_params, layer_apply, lm_loss, prefill, prefill_partial,
 )
 
 __all__ = [
-    "SHAPES", "ModelConfig", "ShapeConfig", "assemble_inputs", "backbone",
+    "SHAPES", "ModelConfig", "ShapeConfig", "abstract_cache",
+    "abstract_paged_cache", "abstract_params", "assemble_inputs", "backbone",
     "decode_step", "decode_step_paged", "embed_tokens", "forward_loss",
     "head_f32", "head_weight", "init_cache", "init_paged_cache",
     "init_params", "layer_apply", "layers", "lm_loss", "prefill",

@@ -48,8 +48,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.dist.api import (
-    along, copy_into, is_dtensor, pad, replicate_on, run_local, shard,
-    whole, write_parts,
+    along, copy_into, is_dtensor, merge_last, pad, replicate_on, rows_whole,
+    run_local, shard, split_last, whole, write_parts,
 )
 
 from .config import ModelConfig
@@ -69,7 +69,7 @@ def dense_init(gen: torch.Generator, in_dim: int, out_dim: int, dtype,
 
 
 def dense(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    return x @ w.to(x.dtype)
+    return rows_whole(rows_whole(x) @ w.to(x.dtype))
 
 
 def csb_dense(x: torch.Tensor, lin) -> torch.Tensor:
@@ -311,11 +311,11 @@ def attn_qkv(p, x, cfg: ModelConfig, pos):
     hd, nh, nkv = cfg.hd, cfg.n_heads, cfg.n_kv
     # fallback="replicate" on all three, JAX's pins: q/k/v do not keep
     # the projection weight's output-dim split through the reshape
-    q = shard(dense(x, p["wq"]).reshape(b, s, nh, hd), "attn_q",
+    q = shard(split_last(dense(x, p["wq"]), (nh, hd)), "attn_q",
               fallback="replicate")
-    k = shard(dense(x, p["wk"]).reshape(b, s, nkv, hd), "attn_kv",
+    k = shard(split_last(dense(x, p["wk"]), (nkv, hd)), "attn_kv",
               fallback="replicate")
-    v = shard(dense(x, p["wv"]).reshape(b, s, nkv, hd), "attn_kv",
+    v = shard(split_last(dense(x, p["wv"]), (nkv, hd)), "attn_kv",
               fallback="replicate")
     if cfg.qk_norm:
         q = rmsnorm(q, p["q_norm"])
@@ -331,7 +331,7 @@ def attn_apply(p, x, cfg: ModelConfig, *, window=None):
     pos = torch.arange(s, device=x.device)
     q, k, v = attn_qkv(p, x, cfg, pos)
     o = blockwise_attention(q, k, v, causal=True, window=window)
-    return dense(o.reshape(b, s, -1), p["wo"])
+    return dense(merge_last(o), p["wo"])
 
 
 def _decode_pos(pos, s: int, device):
@@ -600,7 +600,7 @@ def mla_prefill(p, x, cfg: ModelConfig, pos, *, window=None):
     k, v = _mla_heads(p, c_kv, k_rope[:, :, 0], cfg)
     o = blockwise_attention(torch.cat([q_nope, q_rope], -1), k, v,
                             causal=True, window=window)
-    return (dense(o.reshape(b, s, -1), p["wo"]),
+    return (dense(merge_last(o), p["wo"]),
             {"c_kv": c_kv, "k_rope": k_rope[:, :, 0]})
 
 
@@ -1080,7 +1080,7 @@ def _ssd_out(p, z, xh, y, x, cfg: ModelConfig):
     """The skip term, gated norm and out-projection after the scan."""
     bsz, s = x.shape[:2]
     y = y + xh.to(F32) * p["d_skip"][None, None, :, None]
-    y = y.reshape(bsz, s, cfg.d_inner).to(x.dtype)
+    y = merge_last(y).to(x.dtype)
     y = shard(y, "ssd_inner", fallback="replicate")
     y = rmsnorm(y, p["out_norm"]) * _silu(z)
     return dense(y, p["w_out"])

@@ -1,11 +1,12 @@
 """Decoder LM: embed -> layers -> norm -> head.
 
-A port of ``repro.models.lm`` but its abstract (shape-only) trees:
-parameter init, embedding and head, the training forward (``layer_apply``,
-``backbone``, ``lm_loss``, ``forward_loss``; autograd gives the
-gradients), prompt prefill, the partial prefill of a prompt suffix
-against a cached prefix, and the decode step through the contiguous
-cache and through the paged KV pool. The JAX package stacks
+A port of ``repro.models.lm``: parameter init and its shape-only trees
+(on the ``meta`` device, for the dry run), embedding and head, the
+training forward (``layer_apply``, ``backbone``, ``lm_loss``,
+``forward_loss``; autograd gives the gradients), prompt prefill, the
+partial prefill of a prompt suffix against a cached prefix, and the
+decode step through the contiguous cache and through the paged KV pool.
+The JAX package stacks
 every layer's weights on a leading L axis and scans them; here
 ``params["layers"]`` is a list of per-layer dicts and the layers run in
 a Python loop. The caches stay stacked like JAX's, so that one layer's
@@ -36,7 +37,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch._device import resolve_device
 from repro_torch.dist.api import (
     current_rules, is_dtensor, pad, reduced, run_local, select_part, shard,
-    stack_parts, use_rules, whole,
+    split_last, stack_parts, use_rules, whole,
 )
 
 from . import layers as L
@@ -282,7 +283,7 @@ def lm_loss(params, hidden, labels, cfg: ModelConfig):
         lc = lp[:, i * ck:(i + 1) * ck]
         logits = hc.to(F32) @ w
         if cfg.n_codebooks:
-            logits = logits.reshape(b, ck, cfg.n_codebooks, cfg.vocab)
+            logits = split_last(logits, (cfg.n_codebooks, cfg.vocab))
         logits = shard(logits, "logits")
         if logits.shape[-1] != cfg.vocab:   # mask padded vocab rows
             idx = torch.arange(logits.shape[-1], device=logits.device)
@@ -618,3 +619,32 @@ def init_paged_cache(cfg: ModelConfig, n_pages: int, page_size: int,
     return _stacked(cfg, _zero_layer_cache(
         cfg, lambda: init(cfg, n_pages + 1, page_size, dtype, device),
         n_slots, dtype, device))
+
+
+# ---------------------------------------------------------------------------
+# shape-only trees (the dry run): on the meta device, nothing allocated
+# ---------------------------------------------------------------------------
+
+def _torch_dtype(dtype) -> torch.dtype:
+    return getattr(torch, str(dtype)) if not isinstance(
+        dtype, torch.dtype) else dtype
+
+
+def abstract_params(cfg: ModelConfig) -> dict:
+    """``init_params``' tree on the ``meta`` device: every leaf's shape
+    and dtype, no storage (the JAX package's ``abstract_params``;
+    ``params["layers"]`` is the port's per-layer list)."""
+    return init_params(cfg, torch.Generator(), device="meta")
+
+
+def abstract_cache(cfg: ModelConfig, batch: int, t: int, dtype) -> dict:
+    """``init_cache``'s tree on the ``meta`` device (``dtype`` a torch
+    dtype or its name)."""
+    return init_cache(cfg, batch, t, _torch_dtype(dtype), "meta")
+
+
+def abstract_paged_cache(cfg: ModelConfig, n_pages: int, page_size: int,
+                         n_slots: int, dtype) -> dict:
+    """``init_paged_cache``'s tree on the ``meta`` device."""
+    return init_paged_cache(cfg, n_pages, page_size, n_slots,
+                            _torch_dtype(dtype), "meta")

@@ -113,6 +113,7 @@ def make_train_step(
     tcfg: TrainConfig,
     lr_schedule: Callable | None = None,
     csb_specs: PyTree | None = None,
+    accum_dtype: torch.dtype = F32,
 ):
     """Returns (step_fn, opt) where
     step_fn(params, opt_state, admm_state, residual, batch, step) ->
@@ -123,7 +124,8 @@ def make_train_step(
     (init with ``dist.compress.compress_init(params)``); pass None when
     compression is off: the step then never touches it. Gradients are
     in the params' dtype with one microbatch; with several they
-    accumulate into fp32 zeros and stay fp32, as in JAX."""
+    accumulate into zeros of ``accum_dtype`` (fp32 as in JAX's loop; the
+    dry run's FSDP cells take bf16) and stay in it."""
     opt = get_optimizer(tcfg.optimizer)
     sched = lr_schedule or (lambda s: torch.tensor(tcfg.lr, dtype=F32))
 
@@ -158,13 +160,13 @@ def make_train_step(
         batch = _on(batch, leaves[0].device)
         if tcfg.microbatches > 1:
             n = tcfg.microbatches
-            gsum = [torch.zeros_like(p, dtype=F32) for p in leaves]
+            gsum = [torch.zeros_like(p, dtype=accum_dtype) for p in leaves]
             lsum = torch.zeros((), dtype=F32, device=leaves[0].device)
             for i in range(n):
                 mb = {k: _micro(v, n, i) for k, v in batch.items()}
                 l, g = value_and_grad(params, mb, admm_state)
                 for a, b in zip(gsum, g):
-                    a.add_(b.to(F32))
+                    a.add_(b.to(accum_dtype))
                 lsum = lsum + l
                 del g
             flat = [g / n for g in gsum]
