@@ -104,13 +104,14 @@ Phases, each of which raises (and the script exits nonzero) on failure:
    decode-step profile and peak memory (B2 at MLA's shape is timed in
    phase 6).
 9. The SSD and hybrid slice (``[phase ssd]``), after deepseek is freed:
-   hymba-1.5b (32 layers, d_model 1600, attention of 25 heads over 5 KV
-   heads of 64 beside 25 SSD heads, SwiGLU) and mamba2-370m (48 layers,
-   d_model 1024, SSD alone, no FFN) at full width and depth, random
+   hymba-1.5b (d_model 1600, attention of 25 heads over 5 KV heads of 64
+   beside 25 SSD heads, SwiGLU) and mamba2-370m (d_model 1024, SSD
+   alone, no FFN) at full width, a quarter of their depth (SSD_LAYERS: 8
+   of 32 and 12 of 48 layers, the script's time limit), random
    weights from a seeded generator, fp32 and a bf16 copy, each serving
    the LM trace with bucketing off (the engine turns it off for these
    mixers). hymba in fp32: paged through B2 and through the gather
-   path, and contiguous, with equal tokens, B2's launches 2 x 32 x
+   path, and contiguous, with equal tokens, B2's launches 2 x layers x
    single-query paged steps, B2 held to its plain version (and fp64) on
    the layers' own inputs; mamba2 in fp32: paged (B2 launches 0) and
    contiguous, tokens equal. Both: a 1-token and a 2-token prompt (a
@@ -140,10 +141,11 @@ Phases, each of which raises (and the script exits nonzero) on failure:
    printed apart, ``simulate_replicas``' host replay of both policies
    (TTFT and latency percentiles at the measured bf16 step p50).
 12. The frontends (``[phase frontends]``), after the SSD phase:
-   musicgen-medium (48 layers, d_model 1536, 4 codebooks of 2048) and
-   internvl2-2b (24 layers, d_model 2048, 16 heads over 8 KV heads of
-   128, 256 image tokens from stub embeddings drawn from a seeded
-   generator) at full width and depth, random weights from a seeded
+   musicgen-medium (d_model 1536, 4 codebooks of 2048) and internvl2-2b
+   (d_model 2048, 16 heads over 8 KV heads of 128, 256 image tokens
+   from stub embeddings drawn from a seeded generator) at full width, a
+   quarter of their depth (FRONTEND_LAYERS: 12 of 48 and 6 of 24
+   layers, the script's time limit), random weights from a seeded
    generator, fp32 then bf16. musicgen through ``generate`` (4 x 256
    prompt tokens x 4 codebooks, 32 new tokens, output (4, 288, 4));
    internvl2 through ``prefill`` and 31 greedy contiguous
@@ -277,13 +279,13 @@ Phases, each of which raises (and the script exits nonzero) on failure:
    width, card against CPU within 1e-4. A JSON line ``{"mesh_train":
    ...}`` holds the phase's numbers.
 
-17. LM serving on a mesh (``[phase mesh-serve]``), last: the engines'
+17. LM serving on a mesh (``[phase mesh-serve]``): the engines'
    ``mesh=`` over the dense placements, ranks sharing this card over
    gloo (``spawn_ranks``; every number of theirs is two ranks
    time-slicing one card, not a multi-GPU number). Each rank draws the
    weights from the same seeded generator and places them once
    (``csb_shard_specs``), caches and pools on ``cache_specs``. (a)
-   gemma-2b at full width, MS_LAYERS layers (18: full depth), fp32, on
+   gemma-2b at full width, MS_LAYERS layers (4 of 18), fp32, on
    one card and then over a 1x2 ("data", "model") mesh: six requests
    (prompts 40..300, arrivals 0..4, 8 new tokens) through
    ``serve_continuous`` paged with B2 and with the gather path,
@@ -329,6 +331,26 @@ Phases, each of which raises (and the script exits nonzero) on failure:
    ``PaddedCSB`` and evaluated on the same batches through B1, its
    accuracy equal to the masked-dense one. B1's launches there join the
    kernels line's.
+
+20. The serve examples (``[phase serve-examples]``), last:
+   ``examples/serve_batched_torch.py`` and ``serve_router_torch.py``
+   through their ``main([])``, each a (2, 4) ("data", "model") mesh of
+   eight ranks sharing this card over gloo (``spawn_ranks``; every number
+   of theirs is eight ranks time-slicing one card, not a multi-GPU
+   number), every part of the JAX examples on every rank with their
+   assertions (paged = contiguous tokens, the paging win under a
+   96-token budget, prefix hits, speculative, ``generate``, CSB-RNN
+   frames, the traced re-run; disagg and the prefix cache through the
+   tiers, ``Router(2)``, ``simulate_replicas`` on the host), the ranks
+   held to one another. serve_batched's part 5 (an LSTM 64 -> 128, 16x16
+   blocks at rate 0.9, 32 frames x batch 4 through
+   ``rnn_serve_frames(mesh=)``) runs B3 at R = 4 with the batch over
+   "data": each rank's B3 launches, counted by the rank around the part,
+   equal (frames + warm-up) x the matrices it holds rows of, B1's 0; the
+   outputs and final state bit-equal to the same call through B1 on this
+   card with no mesh. A JSON line
+   ``{"serve_examples": ...}`` holds the phase's numbers; B3's entry in
+   the kernels line adds one rank's launches.
 
 The line before the last is a JSON object with one entry per kernel (B1,
 B2, B3); the last line is ``{"ok": true, "device": {...}}``. Without CUDA the script
@@ -483,10 +505,16 @@ DS_PROMPT_LENS = (64, 64, 128, 128, 256, 256, 512, 1024)
 DS_MAX_NEW = 32
 # the SSD and hybrid slice, at full width and depth
 SSD_ARCHS = ("hymba-1.5b", "mamba2-370m")
+# a quarter of each model's depth (32 and 48 layers), full width: the
+# depth cut that fits [phase serve-examples] in the script's time limit
+SSD_LAYERS = {"hymba-1.5b": 8, "mamba2-370m": 12}
 SHORT_LENS = (1, 2)        # shorter than conv_k - 1: a 1-row conv state
 # the frontends, at full width and depth: GEN_SHAPE prompts (x 4 codebooks
 # for musicgen, after 256 stub image tokens for internvl2), MAX_NEW tokens
 FRONTEND_ARCHS = ("musicgen-medium", "internvl2-2b")
+# a quarter of each model's depth (48 and 24 layers), full width: the
+# same cut as SSD_LAYERS
+FRONTEND_LAYERS = {"musicgen-medium": 12, "internvl2-2b": 6}
 # new tokens held against a prefill of the prompt and every token before
 CHECK_AT = (0, 8, 31)
 # the paper pipeline: tests/test_system.py's GRU flow (SGD at lr 0.05,
@@ -570,7 +598,8 @@ FEATURE_LAYERS = {"int8": 12}
 # reduced deepseek-v2-236b (MLA: B2's rope term) and hymba-1.5b (B2 beside
 # SSD's state) on 1x2, fp32
 MS_MESH, MS_SPLIT_MESH = (1, 2), (2, 1)
-MS_LAYERS = 18             # gemma-2b's full depth
+MS_LAYERS = 4              # of gemma-2b's 18: the depth cut to fit
+                           # [phase serve-examples] in the time limit
 MS_PROMPT_LENS = (40, 97, 150, 200, 256, 300)
 MS_ARRIVALS = (0, 0, 1, 2, 3, 4)
 MS_MAX_NEW = 8
@@ -598,6 +627,10 @@ DRY_MESH, DRY_MESH_LAYERS = (1, 2), 4   # (c): two ranks sharing the card
 DRY_MEM_RTOL = 0.10        # real peak against the dry run's estimate
 DRY_MATMUL_N = 8192        # (d): a bf16 N^3 product
 DRY_COPY_BYTES = 4_000_000_000          # (d): a device copy
+# [phase serve-examples]: examples/serve_batched_torch.py and
+# serve_router_torch.py on a (2, 4) ("data", "model") mesh of eight ranks
+# sharing the card over gloo; part 5 of serve_batched runs B3 at R = 4
+SE_WARMUP = EngineConfig().frame_warmup    # rnn_serve_frames' default
 
 
 def card_line() -> str:
@@ -2073,10 +2106,12 @@ def deepseek_phase(dev) -> dict:
 # ---------------------------------------------------------------------------
 
 def build_ssd(arch: str, dtype: str, dev):
-    """``arch`` at full width and depth in ``dtype``, random weights from
-    a generator seeded ``SEED`` (the bf16 model is the fp32 one rounded:
-    the same draws; SSD's a_log, d_skip and dt_bias stay fp32)."""
-    cfg = dataclasses.replace(get_config(arch), dtype=dtype)
+    """``arch`` at full width and ``SSD_LAYERS`` layers in ``dtype``,
+    random weights from a generator seeded ``SEED`` (the bf16 model is the
+    fp32 one rounded: the same draws; SSD's a_log, d_skip and dt_bias stay
+    fp32)."""
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, dtype=dtype, n_layers=SSD_LAYERS[arch])
     params = LM.init_params(
         cfg, torch.Generator(device=dev).manual_seed(SEED), device=dev)
     n = sum(t.numel() for t in _leaves(params))
@@ -2093,8 +2128,8 @@ def build_ssd(arch: str, dtype: str, dev):
     if n != want:
         raise AssertionError(f"{n} parameters, the config counts {want}")
     size = sum(t.numel() * t.element_size() for t in _leaves(params))
-    print(f"{arch} {dtype}: full width and depth ({cfg.n_layers} layers, "
-          f"d_model {d}, mixer {cfg.mixer}"
+    print(f"{arch} {dtype}: full width, depth cut ({cfg.n_layers} of "
+          f"{full.n_layers} layers, d_model {d}, mixer {cfg.mixer}"
           + (f", {cfg.n_heads} heads over {cfg.n_kv} KV heads of "
              f"{cfg.hd}" if cfg.mixer == "hybrid" else "")
           + f", SSD {cfg.ssd_heads} heads of {cfg.ssd_headdim}, d_state "
@@ -2381,9 +2416,12 @@ def router_phase(lm, step_us: float) -> dict:
 # ---------------------------------------------------------------------------
 
 def build_frontend(arch: str, dtype: str, dev):
-    """``arch`` at full width and depth in ``dtype``, random weights from
-    a generator seeded ``SEED`` (the bf16 model is the fp32 one rounded)."""
-    cfg = dataclasses.replace(get_config(arch), dtype=dtype)
+    """``arch`` at full width and ``FRONTEND_LAYERS`` layers in
+    ``dtype``, random weights from a generator seeded ``SEED`` (the bf16
+    model is the fp32 one rounded)."""
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, dtype=dtype,
+                              n_layers=FRONTEND_LAYERS[arch])
     params = LM.init_params(
         cfg, torch.Generator(device=dev).manual_seed(SEED), device=dev)
     n = sum(t.numel() for t in _leaves(params))
@@ -2396,8 +2434,8 @@ def build_frontend(arch: str, dtype: str, dev):
     if n != want:
         raise AssertionError(f"{n} parameters, the config counts {want}")
     size = sum(t.numel() * t.element_size() for t in _leaves(params))
-    print(f"{arch} {dtype}: full width and depth ({cfg.n_layers} layers, "
-          f"d_model {d}, {cfg.n_heads} heads over {cfg.n_kv} KV heads of "
+    print(f"{arch} {dtype}: full width, depth cut ({cfg.n_layers} of "
+          f"{full.n_layers} layers, d_model {d}, {cfg.n_heads} heads over {cfg.n_kv} KV heads of "
           f"{cfg.hd}, d_ff {cfg.d_ff}, vocab {cfg.vocab}"
           + (f", {cfg.n_codebooks} codebooks" if cfg.n_codebooks else "")
           + (f", {cfg.n_img_tokens} image tokens" if cfg.n_img_tokens
@@ -4807,6 +4845,124 @@ def progressive_phase(dev) -> dict:
     return out
 
 
+def serve_examples_phase(dev) -> dict:
+    """``examples/serve_batched_torch.py`` and ``serve_router_torch.py``
+    through their ``main([])`` on the card: each spawns a (2, 4) ("data",
+    "model") mesh of eight ranks sharing this card over gloo, runs every
+    part on every rank (each asserting what the JAX example asserts) and
+    holds the ranks to one another. Then serve_batched's part 5 (an LSTM
+    64 -> 128, 16x16 blocks at rate 0.9, 32 frames x batch 4): each rank's
+    B3 launches, counted by the rank around the part, equal to (frames +
+    warm-up) x the matrices it holds rows of, B1's 0; its outputs and final
+    state bit-equal to the same call through B1 on this card with no mesh
+    (B3 sums each output in B1's order, whatever the batch rows a rank
+    gets)."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "examples"))
+    import serve_batched_torch as sb
+    import serve_router_torch as sr
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {}
+    b = sb.main([])
+    r = sr.main([])
+    ranks, r0 = b["ranks"], b["ranks"][0]
+    st = {k: r0[k]["stats"] for k in (
+        "paged", "contiguous", "budget_paged", "budget_contiguous",
+        "shared_base", "shared", "speculative", "traced")}
+    sp = st["speculative"]["speculative"]
+    out["serve_batched"] = {
+        "wall_s": b["wall_s"],
+        **{f"{k}_tokens_per_sec": v["tokens_per_sec"] for k, v in st.items()},
+        **{f"{k}_decode_steps": v["decode_steps"] for k, v in st.items()},
+        "budget_peak_active": [st["budget_paged"]["peak_active"],
+                               st["budget_contiguous"]["peak_active"]],
+        "prefix_hits": st["shared"]["prefix_hits"],
+        "prefill_tokens": [st["shared_base"]["prefill_tokens"],
+                           st["shared"]["prefill_tokens"]],
+        "spec_rounds": sp["rounds"], "spec_accepted": sp["accepted"],
+        "generate_s": r0["generate"]["wall_s"],
+        "us_per_frame": [g["frames"]["us_per_frame"] for g in ranks],
+        "traced_steady_tokens_per_sec":
+            st["traced"]["steady_tokens_per_sec"]}
+    # part 5: B3's launches on each rank, counted around the part
+    frames, cell = b["frames"], make_cell(*sb.CELL)
+    mats = {k: w for k, w in b["cell"].items()
+            if not isinstance(w, torch.Tensor)}
+    n_model = sb.MESH[1]
+    shards = {k: partition_padded(w, n_model)[1] for k, w in mats.items()}
+    calls = frames.shape[0] + SE_WARMUP
+    launches = [g["frames"]["b3_launches"] for g in ranks]
+    for rank, g in enumerate(ranks):
+        held = sum(len(s.row_map[rank % n_model]) > 0
+                   for s in shards.values())
+        if (g["frames"]["b3_launches"] != calls * held
+                or g["frames"]["b1_launches"] != 0):
+            raise AssertionError(
+                f"serve_batched part 5 on rank {rank}: B3 launches "
+                f"{g['frames']['b3_launches']}, B1 {g['frames']['b1_launches']}"
+                f"; expected B3 {calls} calls x {held} matrices held, B1 0")
+    # the same call through B1 on this card, no mesh
+    per = frames.shape[1] // sb.MESH[0]
+    start = csb_mvm.LAUNCHES
+    ys, state, us_one = rnn_serve_frames(cell, b["cell"], frames, device=dev)
+    b1 = csb_mvm.LAUNCHES - start
+    got = r0["frames"]
+    pairs = [(got["outputs"], ys.cpu(), "outputs")] + [
+        (got["state"][k], v.cpu(), f"state {k}") for k, v in state.items()]
+    err = max(float((a - c).abs().max()) for a, c, _ in pairs)
+    for a, c, what in pairs:
+        if not torch.equal(a, c):
+            raise AssertionError(
+                f"serve_batched part 5 {what}: the mesh's B3 "
+                f"{float((a - c).abs().max()):.3e} from B1 on one card, "
+                f"not bit-equal")
+    if b1 != calls * len(mats):
+        raise AssertionError(f"B1 on one card: {b1} launches, expected "
+                             f"{calls * len(mats)}")
+    out["frames"] = {
+        "b3_launches_per_rank": launches, "expected_per_rank":
+            calls * len(mats), "max_abs_err_vs_b1": err,
+        "one_card_us_per_frame": us_one}
+    print(f"  serve_batched: 8 ranks on a {sb.MESH} ('data', 'model') mesh "
+          f"sharing this card ({card_line()}) over gloo, not a multi-GPU "
+          f"number; wall {b['wall_s']:.1f} s")
+    print(f"    paged {st['paged']['tokens_per_sec']:.1f} tok/s over "
+          f"{st['paged']['decode_steps']} decode steps (contiguous "
+          f"{st['contiguous']['tokens_per_sec']:.1f}); budget peak_active "
+          f"paged/contiguous {out['serve_batched']['budget_peak_active']}; "
+          f"prefix hits {st['shared']['prefix_hits']}, prefill tokens "
+          f"{out['serve_batched']['prefill_tokens']}; speculative "
+          f"{sp['rounds']} rounds, {sp['accepted']} accepted; generate "
+          f"{r0['generate']['wall_s']:.2f} s; traced steady "
+          f"{st['traced']['steady_tokens_per_sec']:.1f} tok/s")
+    print(f"    part 5: B3 at R = {n_model} (batch {per} a rank over "
+          f"'data' = {sb.MESH[0]}): {launches} launches a rank "
+          f"({calls} calls x {len(mats)} matrices = {calls * len(mats)}), "
+          f"B1 0; us/frame a rank {out['serve_batched']['us_per_frame']} "
+          f"(eight ranks time-slicing the card; realtime bar "
+          f"{sb.REALTIME_US:.0f} us), one card through B1 {us_one:.1f}; "
+          f"outputs and state bit-equal to B1 on one card")
+    rr = r["ranks"][0]
+    out["serve_router"] = {
+        "wall_s": r["wall_s"],
+        "handoffs": rr["disagg"]["stats"]["handoffs"],
+        "handoff_pages": rr["disagg"]["stats"]["handoff_pages"],
+        "prefix_hits": rr["shared_disagg"]["stats"]["prefix_hits"],
+        "replica_requests": rr["routed"]["stats"]["replica_requests"],
+        **{f"{k}_tokens_per_sec": rr[k]["stats"]["tokens_per_sec"]
+           for k in ("single", "disagg")},
+        "simulate": {p: {"ttft_p99_us": v["ttft_us"]["p99"],
+                         "slo_attainment": v["slo_attainment"]}
+                     for p, v in r["simulate"].items()}}
+    print(f"  serve_router: 8 ranks on {sr.MESH}, wall {r['wall_s']:.1f} s; "
+          f"disagg {out['serve_router']['handoffs']} handoffs, prefix hits "
+          f"{out['serve_router']['prefix_hits']}, router replica requests "
+          f"{out['serve_router']['replica_requests']}")
+    out["launches"] = launches[0]
+    print(json.dumps({"serve_examples": out}))
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA device; none is available",
@@ -4871,6 +5027,7 @@ def main() -> int:
     ms = phase("mesh-serve", mesh_serve_phase, dev)
     phase("dryrun", dryrun_phase, dev)
     pg = phase("progressive", progressive_phase, dev)
+    se = phase("serve-examples", serve_examples_phase, dev)
     print(f"[total {time.perf_counter() - t_start:.1f} s]")
     print(json.dumps({"kernels": [{
         **KERNEL, "launches": (sl["launches"] + pp["launches"]
@@ -4945,7 +5102,9 @@ def main() -> int:
             "paged_bfloat16", "disagg_bfloat16")}, "router": rt},
         "frontends": fe,
     }, {
-        **SHARDED_KERNEL, "launches": sh["launches"],
+        **SHARDED_KERNEL, "launches": sh["launches"] + se["launches"],
+        # [phase serve-examples]: serve_batched's part 5 on one rank
+        "serve_examples_launches": se["launches"],
         "max_abs_err": sh["max_abs_err"], "ms": sh["sr1"]["ms"],
         "plain_ms": sh["sr1"]["plain_ms"], "bound_ms": sh["sr1"]["bound_ms"],
         "bound_by": sh["sr1"]["bound_by"],

@@ -128,7 +128,11 @@ def test_spawned_ranks_load_no_jax_or_repro():
                                        ROOT / "examples" /
                                        "quickstart_torch.py",
                                        ROOT / "examples" /
-                                       "train_lm_e2e_torch.py"]))
+                                       "train_lm_e2e_torch.py",
+                                       ROOT / "examples" /
+                                       "serve_batched_torch.py",
+                                       ROOT / "examples" /
+                                       "serve_router_torch.py"]))
 def test_sources_import_no_jax_or_repro(path):
     src = (ROOT / path).read_text()
     bad = re.findall(r"^\s*(?:import\s+(?:jax|repro)\b|from\s+(?:jax|repro)"
@@ -176,6 +180,20 @@ def test_mesh_entry_points_raise_without_cuda_unless_asked(no_cuda):
         spawn_ranks(_loaded_modules, (1, 2))
     with pytest.raises(RuntimeError, match="device='cpu'"):
         make_test_mesh()
+
+
+@pytest.mark.parametrize("name", ["serve_batched_torch", "serve_router_torch"])
+def test_serve_examples_raise_without_cuda_unless_asked(no_cuda, name):
+    """Without ``--cpu`` the serve examples ask for the card: without CUDA
+    they raise before any rank starts, never falling back to the CPU."""
+    import importlib
+    sys.path.insert(0, str(ROOT / "examples"))
+    try:
+        ex = importlib.import_module(name)
+    finally:
+        sys.path.remove(str(ROOT / "examples"))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ex.main([])
 
 
 def test_matvec_raises_without_cuda_unless_asked(no_cuda):
