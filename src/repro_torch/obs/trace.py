@@ -1,7 +1,7 @@
 """Low-overhead span tracer (a copy of ``repro.obs.trace``, which has no
 JAX code; the event format is identical) with a Chrome ``trace_event`` exporter.
 
-The serve/train stacks are instrumented with *spans* (begin/end pairs),
+The serve/train stacks are instrumented with *spans* (``with`` blocks),
 *instants* (point events) and externally-timed *complete* events, all
 written into a **preallocated ring buffer** — recording is an index
 bump plus a tuple store, never a list growth, so a multi-minute serve
@@ -13,6 +13,17 @@ path: module-level helpers read one global, compare against ``None``
 and return a shared singleton — no dict, no tuple, no timestamps.
 Instrumented code therefore stays on the timed serve paths without
 moving them.
+
+**One clock with the device trace.** The tracer stamps
+``time.perf_counter_ns()``, which a ``torch.profiler`` trace does not
+share. So while a span is open and a profiler is recording, the span
+also holds a ``torch.profiler.record_function`` range of its name: the
+span then sits in the profiler's own trace as a ``user_annotation``
+event, on that trace's clock and nested with the aten ops and kernel
+launches it encloses, beside the device's kernels. ``torch.profiler``
+is imported on the first span, and a span opened with no profiler
+recording opens no range. ``complete`` and ``instant`` events are timed
+after the fact and stay on the tracer's clock alone.
 
 Export targets the Chrome ``trace_event`` JSON format (the
 ``traceEvents`` array of ``ph``/``ts``/``pid``/``tid``/``name``
@@ -58,10 +69,28 @@ class _NullSpan:
 _NULL_SPAN = _NullSpan()
 
 
-class _Span:
-    """Context-manager handle pairing one ``begin`` with its ``end``."""
+_profiler = None        # torch.autograd.profiler, imported on the first span
 
-    __slots__ = ("_tracer", "_name", "_track", "_args", "_t0")
+
+def _profiler_range(name: str):
+    """An entered ``record_function`` range named ``name`` while a
+    ``torch.profiler`` records; None while none does."""
+    global _profiler
+    if _profiler is None:
+        from torch.autograd import profiler
+        _profiler = profiler
+    if not _profiler._is_profiler_enabled:
+        return None
+    rf = _profiler.record_function(name)
+    rf.__enter__()
+    return rf
+
+
+class _Span:
+    """Context-manager handle timing one ``with`` body; it also holds a
+    profiler range of its name while a profiler records."""
+
+    __slots__ = ("_tracer", "_name", "_track", "_args", "_t0", "_range")
 
     def __init__(self, tracer, name, track, args):
         self._tracer = tracer
@@ -70,11 +99,14 @@ class _Span:
         self._args = args
 
     def __enter__(self):
+        self._range = _profiler_range(self._name)
         self._t0 = time.perf_counter_ns()
         return self
 
     def __exit__(self, *exc):
         t1 = time.perf_counter_ns()
+        if self._range is not None:
+            self._range.__exit__(None, None, None)
         self._tracer._record("X", self._name, self._t0, t1 - self._t0,
                              self._track, self._args)
         return False
@@ -95,7 +127,6 @@ class Tracer:
         self._ring: list = [None] * capacity
         self._n = 0                     # events ever recorded
         self._lock = threading.Lock()
-        self._stacks = threading.local()
         self._t0 = time.perf_counter_ns()
 
     # -- recording -----------------------------------------------------------
@@ -109,25 +140,9 @@ class Tracer:
 
     def span(self, name: str, track: str | None = None,
              args: dict | None = None) -> _Span:
-        """Context manager timing its ``with`` body as one X event."""
+        """Context manager timing its ``with`` body as one X event (and
+        as a profiler range while a profiler records)."""
         return _Span(self, name, track, args)
-
-    def begin(self, name: str, track: str | None = None,
-              args: dict | None = None) -> None:
-        """Open a nested span on this thread (pair with :meth:`end`)."""
-        stack = getattr(self._stacks, "open", None)
-        if stack is None:
-            stack = self._stacks.open = []
-        stack.append((name, track, args, time.perf_counter_ns()))
-
-    def end(self, args: dict | None = None) -> None:
-        """Close the innermost :meth:`begin` span; ``args`` merge over
-        the ones passed to ``begin``."""
-        t1 = time.perf_counter_ns()
-        name, track, a0, t0 = self._stacks.open.pop()
-        if args:
-            a0 = {**(a0 or {}), **args}
-        self._record("X", name, t0, t1 - t0, track, a0)
 
     def instant(self, name: str, track: str | None = None,
                 args: dict | None = None) -> None:

@@ -889,93 +889,116 @@ def rnn_serve_frames(graph: CellGraph, params: dict, frames,
     for each frame before the next starts — the tail-latency (p99)
     number realtime audio cares about. That pass also records the
     ``serve/frame`` spans and the ``serve/frames/wall_us`` histogram when
-    ``repro_torch.obs`` is enabled, after each frame's timing."""
-    fcfg = resolve_config(config, caller="rnn_serve_frames")
-    if warmup is None:
-        warmup = fcfg.frame_warmup
-    if collect_frame_times is None:
-        collect_frame_times = fcfg.collect_frame_times
-    dev = resolve_device(device)
-    frames = torch.as_tensor(frames, device=dev)
-    if frames.dtype == torch.float64:
-        # the JAX package computes in fp32 (x64 is off there)
-        frames = frames.to(torch.float32)
-    params = {k: w.to(dev) for k, w in params.items()}
-    if state is not None:
-        state = {k: v.to(dev) for k, v in state.items()}
-    mesh = _resolve_mesh(mesh)
-    rules, dp = current_rules(), []
-    if mesh is not None:
-        if axis_sizes(mesh).get(axis_name, 1) > 1:
-            params = shard_cell_params(params, mesh, axis_name)
-        dp = _data_axes(mesh, axis_name)
-        n_dp = math.prod(axis_sizes(mesh)[a] for a in dp)
-        if frames.shape[1] % n_dp:      # JAX's guard: the batch replicated
-            dp = []
-        if dp:
-            index = 0
-            for a in dp:
-                index = index * axis_sizes(mesh)[a] + mesh.get_local_rank(a)
-            per = frames.shape[1] // n_dp
-            frames = frames[:, index * per:(index + 1) * per]
+    ``repro_torch.obs`` is enabled, after each frame's timing.
+
+    With ``repro_torch.obs`` enabled the call also records the spans
+    ``serve/frames/call`` (the whole call), ``serve/frames/prologue``
+    (config, device, placement and state), ``serve/frames/sync`` (each
+    synchronisation around the unblocked pass), ``serve/frames/step``
+    (each frame's enqueue in the unblocked pass) and
+    ``serve/frames/gather`` (stacking, and on a mesh gathering, the
+    outputs); while a ``torch.profiler`` records, each is a range in its
+    trace too."""
+    tr = obs_trace.get()
+    span = obs_trace.span if tr is None else tr.span
+    with span("serve/frames/call"):
+        with span("serve/frames/prologue"):
+            fcfg = resolve_config(config, caller="rnn_serve_frames")
+            if warmup is None:
+                warmup = fcfg.frame_warmup
+            if collect_frame_times is None:
+                collect_frame_times = fcfg.collect_frame_times
+            dev = resolve_device(device)
+            frames = torch.as_tensor(frames, device=dev)
+            if frames.dtype == torch.float64:
+                # the JAX package computes in fp32 (x64 is off there)
+                frames = frames.to(torch.float32)
+            params = {k: w.to(dev) for k, w in params.items()}
             if state is not None:
-                state = {k: v[index * per:(index + 1) * per]
-                         for k, v in state.items()}
-        if rules is None or rules.mesh is not mesh:
-            rules = Rules(mesh=mesh)
-    if rules is None:
-        rules = Rules()
-    if state is None:
-        state = init_state(graph, tuple(frames.shape[1:-1]), torch.float32,
-                           device=dev)
-    sync = (torch.cuda.synchronize if dev.type == "cuda"
-            else (lambda: None))
-    start = (lambda: _barrier(mesh)) if mesh is not None else (lambda: None)
+                state = {k: v.to(dev) for k, v in state.items()}
+            mesh = _resolve_mesh(mesh)
+            rules, dp = current_rules(), []
+            if mesh is not None:
+                if axis_sizes(mesh).get(axis_name, 1) > 1:
+                    params = shard_cell_params(params, mesh, axis_name)
+                dp = _data_axes(mesh, axis_name)
+                n_dp = math.prod(axis_sizes(mesh)[a] for a in dp)
+                if frames.shape[1] % n_dp:  # JAX's guard: batch replicated
+                    dp = []
+                if dp:
+                    index = 0
+                    for a in dp:
+                        index = (index * axis_sizes(mesh)[a]
+                                 + mesh.get_local_rank(a))
+                    per = frames.shape[1] // n_dp
+                    frames = frames[:, index * per:(index + 1) * per]
+                    if state is not None:
+                        state = {k: v[index * per:(index + 1) * per]
+                                 for k, v in state.items()}
+                if rules is None or rules.mesh is not mesh:
+                    rules = Rules(mesh=mesh)
+            if rules is None:
+                rules = Rules()
+            if state is None:
+                state = init_state(graph, tuple(frames.shape[1:-1]),
+                                   torch.float32, device=dev)
+        sync = (torch.cuda.synchronize if dev.type == "cuda"
+                else (lambda: None))
+        start = ((lambda: _barrier(mesh)) if mesh is not None
+                 else (lambda: None))
 
-    def step(st, x):
-        return cell_apply(graph, params, x, st)
+        def step(st, x):
+            return cell_apply(graph, params, x, st)
 
-    n = frames.shape[0]
-    with torch.no_grad(), use_rules(rules):
-        for _ in range(warmup):
-            step(state, frames[0])
-        sync()
-
-        outs = []
-        start()
-        t0 = time.perf_counter()
-        st = state
-        for t in range(n):
-            y, st = step(st, frames[t])
-            outs.append(y)
-        sync()
-        dt = time.perf_counter() - t0
-
-        frame_us = None
-        if collect_frame_times:
-            # a separate pass, so the throughput number above is untouched
-            # by the per-frame waits; spans and histogram are recorded
-            # after each frame's timing
-            tr = obs_trace.get()
-            reg = obs_metrics.get()
-            frame_us = np.empty(n)
-            st2 = state
-            start()
-            for t in range(n):
-                f0 = time.perf_counter_ns()
-                _, st2 = step(st2, frames[t])
+        n = frames.shape[0]
+        with torch.no_grad(), use_rules(rules):
+            for _ in range(warmup):
+                step(state, frames[0])
+            with span("serve/frames/sync"):
                 sync()
-                dur = time.perf_counter_ns() - f0
-                frame_us[t] = dur / 1e3
-                if tr is not None:
-                    tr.complete("serve/frame", f0, dur, track="frames",
-                                args={"frame": t})
-                if reg is not None:
-                    reg.histogram("serve/frames/wall_us").observe(dur / 1e3)
-        ys = torch.stack(outs)
-        if dp:
-            ys = _gather_batch(ys, mesh, dp, 1)
-            st = {k: _gather_batch(v, mesh, dp, 0) for k, v in st.items()}
+
+            outs = []
+            start()
+            t0 = time.perf_counter()
+            st = state
+            for t in range(n):
+                if tr is None:
+                    y, st = step(st, frames[t])
+                else:
+                    with tr.span("serve/frames/step"):
+                        y, st = step(st, frames[t])
+                outs.append(y)
+            with span("serve/frames/sync"):
+                sync()
+            dt = time.perf_counter() - t0
+
+            frame_us = None
+            if collect_frame_times:
+                # a separate pass, so the throughput number above is
+                # untouched by the per-frame waits; spans and histogram
+                # are recorded after each frame's timing
+                reg = obs_metrics.get()
+                frame_us = np.empty(n)
+                st2 = state
+                start()
+                for t in range(n):
+                    f0 = time.perf_counter_ns()
+                    _, st2 = step(st2, frames[t])
+                    sync()
+                    dur = time.perf_counter_ns() - f0
+                    frame_us[t] = dur / 1e3
+                    if tr is not None:
+                        tr.complete("serve/frame", f0, dur, track="frames",
+                                    args={"frame": t})
+                    if reg is not None:
+                        reg.histogram("serve/frames/wall_us").observe(
+                            dur / 1e3)
+            with span("serve/frames/gather"):
+                ys = torch.stack(outs)
+                if dp:
+                    ys = _gather_batch(ys, mesh, dp, 1)
+                    st = {k: _gather_batch(v, mesh, dp, 0)
+                          for k, v in st.items()}
     us_per_frame = dt / n * 1e6
     if collect_frame_times:
         return ys, st, us_per_frame, frame_us

@@ -54,9 +54,12 @@ def test_engine_config_fields_and_resolve():
 def test_tracer_chrome_format_and_ring():
     tr = trace.Tracer(capacity=4)
     with tr.span("a", track="t"):
-        pass
-    tr.begin("b")
-    tr.end(args={"k": 1})
+        with tr.span("b", args={"k": 1}):
+            pass
+    a, b = sorted((e for e in tr.to_chrome()["traceEvents"]
+                   if e["ph"] == "X"), key=lambda e: e["name"])
+    assert b["args"] == {"k": 1} and b["tid"] != a["tid"]
+    assert a["ts"] <= b["ts"] and b["ts"] + b["dur"] <= a["ts"] + a["dur"]
     for i in range(4):
         tr.instant("i", args={"n": i})
     assert tr.dropped == 2

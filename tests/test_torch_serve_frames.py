@@ -80,8 +80,9 @@ def test_obs_spans_and_histogram():
     assert [e["args"]["frame"] for e in spans] == [0, 1, 2]
     h = reg.to_dict()["histograms"]["serve/frames/wall_us"]
     assert h["count"] == 3 and h["max"] == pytest.approx(fus.max())
-    assert obs.summary.summarize(tr.to_chrome()["traceEvents"])[0][
-        "name"] == "serve/frame"
+    rows = {r["name"]: r for r in
+            obs.summary.summarize(tr.to_chrome()["traceEvents"])}
+    assert rows["serve/frame"]["count"] == 3
 
 
 def test_obs_off_and_three_tuple():
@@ -107,3 +108,88 @@ def test_config_type_checked():
     with pytest.raises(TypeError, match="rnn_serve_frames"):
         rnn_serve_frames(cell, params, torch.zeros(1, 1, 4), config={},
                          device="cpu")
+
+
+FRAME_SPANS = ("serve/frames/call", "serve/frames/prologue",
+               "serve/frames/sync", "serve/frames/step",
+               "serve/frames/gather")
+
+
+def _frames(t=4, b=2):
+    return torch.randn(t, b, 4, generator=torch.Generator().manual_seed(3))
+
+
+def test_obs_call_spans_nest():
+    """One call records one ``call`` span holding one ``prologue``, two
+    ``sync``, a ``step`` a frame (the warm-up's steps are not frames) and
+    one ``gather``."""
+    cell, params = _tiny()
+    tr = obs.trace.enable()
+    try:
+        rnn_serve_frames(cell, params, _frames(), warmup=2, device="cpu")
+    finally:
+        obs.trace.disable()
+    spans = {}
+    for ph, name, ts, dur, _, _ in tr.events():
+        assert ph == "X"
+        spans.setdefault(name, []).append((ts, ts + dur))
+    assert {k: len(v) for k, v in spans.items()} == dict(zip(
+        FRAME_SPANS, (1, 1, 2, 4, 1)))
+    (c0, c1), = spans.pop("serve/frames/call")
+    for name, ivs in spans.items():
+        assert all(c0 <= a <= b <= c1 for a, b in ivs), name
+    # in call order: prologue, entry sync, the steps, exit sync, gather
+    order = sorted((a, name) for name, ivs in spans.items() for a, _ in ivs)
+    assert [name for _, name in order] == [
+        "serve/frames/prologue", "serve/frames/sync",
+        *["serve/frames/step"] * 4, "serve/frames/sync",
+        "serve/frames/gather"]
+
+
+def test_obs_off_records_nothing_and_changes_nothing():
+    cell, params = _tiny()
+    on = obs.trace.enable()
+    try:
+        y_on, st_on, _ = rnn_serve_frames(cell, params, _frames(),
+                                          device="cpu")
+    finally:
+        obs.trace.disable()
+    off = obs.trace.enable()
+    obs.trace.disable()
+    y_off, st_off, _ = rnn_serve_frames(cell, params, _frames(),
+                                        device="cpu")
+    assert on.events() and off.events() == []
+    assert torch.equal(y_on, y_off)
+    assert st_on.keys() == st_off.keys()
+    for k in st_on:
+        assert torch.equal(st_on[k], st_off[k])
+
+
+def test_obs_spans_are_profiler_ranges_only_while_on(tmp_path):
+    """Under ``torch.profiler`` the spans are ``user_annotation`` ranges
+    of the profiler's own trace while the tracer is on, and absent while
+    it is off."""
+    import json
+
+    from torch.profiler import ProfilerActivity, profile
+    cell, params = _tiny()
+
+    def names(on):
+        if on:
+            obs.trace.enable()
+        try:
+            with profile(activities=[ProfilerActivity.CPU]) as prof:
+                rnn_serve_frames(cell, params, _frames(3), device="cpu")
+        finally:
+            obs.trace.disable()
+        path = tmp_path / f"trace_{on}.json"
+        prof.export_chrome_trace(str(path))
+        out = {}
+        for e in json.loads(path.read_text())["traceEvents"]:
+            if str(e.get("name", "")).startswith("serve/"):
+                assert e["cat"] == "user_annotation"
+                out[e["name"]] = out.get(e["name"], 0) + 1
+        return out
+
+    assert names(True) == dict(zip(FRAME_SPANS, (1, 1, 2, 3, 1)))
+    assert names(False) == {}
