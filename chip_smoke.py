@@ -26,6 +26,18 @@ Phases, each of which raises (and the script exits nonzero) on failure:
    matmul on the dense matrix for the 18 CSB MVMs of one SR1 frame: by
    CUDA events around each call, by the profiler's device time, and by
    replaying 20 calls captured in a CUDA graph (no host in the time).
+   Then B1 at the serving batch (``[phase B1 at the serving batch]``),
+   where ``csb_matvec`` takes the batch-tiled body (1,024 true rows, at
+   or above ``csb_mvm.TILED_MIN_ROWS``): SR1's 18 and SR2's 12 matrices
+   as the benchmark serves them (``portbench``'s weights, seed 0, encoded
+   by its ``Program``) and gemma-2b's FFN projections (in 2048, out
+   16384 and back) at ``CSBSpec(32, 32, 0.75)``, x fp32 (and bf16 at the
+   FFN). Each output is held to the plain version at the kernel phase's
+   tolerances and must equal, as numbers, the row body's on the same
+   rows (run in slices of ``TILED_MIN_ROWS - 1`` rows, which take it);
+   ``csb_mvm.TILED_LAUNCHES``, set to 0 first, must count every call at
+   1,024 rows and none of the slices. Each set is then timed as phase
+   4's MVMs are, its device time printed beside its bound.
 5. B2 kernel phase: ``paged_attn_decode`` on CUDA tensors (the
    hand-written paged-attention kernel) against its plain version
    ``paged_attn_ref`` on the same tensors: the edge cases of the JAX
@@ -543,6 +555,7 @@ SR1_ENGINE = CycleConfig(K=4, L=4, P=4, Q=4)
 LM_FFN = (2048, 16384)     # gemma-2b's w_gate / w_up, (in, out)
 LM_FFN_SPEC = CSBSpec(bm=32, bn=32, prune_rate=0.75)  # train_lm_e2e.py:47
 LM_FFN_BATCH = 4
+SERVE_BATCH = 1024         # the benchmark's slots (portbench/traffic/offline.json)
 # [phase train]: the JAX launcher's defaults (src/repro/launch/train.py)
 TRAIN_STEPS = 8            # (a): the loop's first step sets up; 7 steady
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_LR, TRAIN_WARMUP = 8, 128, 1e-3, 10
@@ -1104,6 +1117,103 @@ def timing_phase(layers, dev) -> dict:
         if not isinstance(p, torch.Tensor)]
     return b1_timing(f"one SR1 frame's {len(pairs)} CSB MVMs at batch 1",
                      pairs)
+
+
+def served_matrices(config: str, dev) -> list:
+    """The CSB matrices of the benchmark's configuration ``config``
+    (``portbench/configs``) as its ``Program`` serves them: the
+    benchmark's weights from seed 0, encoded by the port's loader."""
+    from portbench.drivers.rnn_frames import Program, make_model
+    root = Path(__file__).resolve().parent / "portbench"
+    cfg = json.loads((root / "configs" / f"{config}.json").read_text())
+    mix = dict(json.loads((root / "traffic" / "offline.json").read_text()),
+               bank_frames=16)
+    prog = Program(cfg, make_model(cfg, mix, 0, dev), dev)
+    return [p for params in prog.params for p in params.values()
+            if not isinstance(p, torch.Tensor)]
+
+
+def ffn_matrix(shape, gen, dev):
+    """gemma-2b's FFN weight of ``shape`` (in, out), random from ``gen``,
+    frozen through ``CSBLinear(transposed=True)`` at LM_FFN_SPEC."""
+    w = (torch.randn(shape, generator=gen) / math.sqrt(shape[0])).to(dev)
+    return CSBLinear(w, LM_FFN_SPEC, mode="masked",
+                     transposed=True).freeze()._packed
+
+
+def serving_batch_phase(dev, ffn) -> dict:
+    """B1 at the benchmark's serving batch, where ``csb_matvec`` takes the
+    batch-tiled body: every matrix of SR1 and SR2 as the benchmark serves
+    them, and gemma-2b's FFN projections (``ffn``'s in 2048, out 16384,
+    and one of out 2048 from in 16384), on SERVE_BATCH rows of x; each
+    output within TOL of the plain version and equal as numbers to the
+    row body's on the same rows (slices of TILED_MIN_ROWS - 1 rows take
+    it); ``TILED_LAUNCHES``, set to 0 here, counts each call at
+    SERVE_BATCH rows and none of the slices, and every launch of the
+    timing. Each set is timed by ``b1_timing`` (x fp32)."""
+    rng = np.random.default_rng(SEED + 3)
+    gen = torch.Generator().manual_seed(SEED + 3)
+    sets = {"sr1": served_matrices("sr1", dev),
+            "sr2": served_matrices("sr2", dev),
+            "lm_ffn": [ffn["frozen"]._packed,
+                       ffn_matrix(LM_FFN[::-1], gen, dev)]}
+    step = csb_mvm.TILED_MIN_ROWS - 1
+    csb_mvm.TILED_LAUNCHES = 0
+    start = csb_mvm.LAUNCHES
+    calls = slices = 0
+    out = {}
+    for name, mats in sets.items():
+        pairs, err = [], 0.0
+        for p in mats:
+            x32 = torch.from_numpy(rng.standard_normal(
+                (SERVE_BATCH, p.shape[1])).astype(np.float32)).to(dev)
+            pairs.append((p, x32))
+            dtypes = ((torch.float32, torch.bfloat16) if name == "lm_ffn"
+                      else (torch.float32,))
+            for dtype in dtypes:
+                label = (f"{name} {tuple(p.shape)} x {dtype} at "
+                         f"B {SERVE_BATCH}")
+                x = x32.to(dtype)
+                e = compare(label, p, x)
+                y = csb_matvec(p, x)
+                row = torch.cat([csb_matvec(p, x[i:i + step])
+                                 for i in range(0, SERVE_BATCH, step)])
+                calls += 2
+                slices += -(-SERVE_BATCH // step)
+                if not torch.equal(y, row):
+                    raise AssertionError(
+                        f"{label}: the batch-tiled body and the row body "
+                        f"differ, max abs "
+                        f"{float((y - row).abs().max()):.3e}")
+                if dtype == torch.float32:
+                    err = max(err, e)
+        launches = csb_mvm.LAUNCHES - start
+        if csb_mvm.TILED_LAUNCHES != calls or launches != calls + slices:
+            raise AssertionError(
+                f"{name}: TILED_LAUNCHES {csb_mvm.TILED_LAUNCHES} of "
+                f"{launches} launches; want {calls} of {calls + slices}")
+        t = b1_timing(f"B1 at the serving batch, {name}'s {len(pairs)} "
+                      f"matrices at {SERVE_BATCH} rows", pairs)
+        launches = csb_mvm.LAUNCHES - start
+        if csb_mvm.TILED_LAUNCHES != launches - slices:
+            raise AssertionError(
+                f"{name}: the timing took the row body "
+                f"({launches - slices - csb_mvm.TILED_LAUNCHES} launches)")
+        calls = csb_mvm.TILED_LAUNCHES
+        out[name] = {"matrices": len(pairs), "max_abs_err": err,
+                     **{k: t[k] for k in (
+                         "ms", "device_ms", "graph_ms", "bound_ms",
+                         "bound_by", "plain_ms", "library_device_ms",
+                         "library_graph_ms")}}
+        print(f"  {name}: {len(pairs)} matrices at {SERVE_BATCH} rows, "
+              f"equal to the row body and within TOL of the plain version "
+              f"(fp32 max abs err {err:.3e}); device {_ms(t['device_ms'])} "
+              f"against a bound of {t['bound_ms']:.5f} ms")
+    out["tiled_launches"] = csb_mvm.TILED_LAUNCHES
+    out["launches"] = csb_mvm.LAUNCHES - start
+    print(f"  TILED_LAUNCHES {out['tiled_launches']} of "
+          f"{out['launches']} launches (the rest: {slices} row-body slices)")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -4993,6 +5103,7 @@ def main() -> int:
     tm = phase("B1 timing", timing_phase, layers, dev)
     ffn = build_lm_ffn(dev)
     ffn_t = phase("B1 timing at gemma-2b's FFN", ffn_timing_phase, ffn)
+    sb = phase("B1 at the serving batch", serving_batch_phase, dev, ffn)
     phase("SR1 frame profile", frame_profile, layers, frames)
     paged_err = phase("B2 kernel", paged_kernel_phase, dev)
     lm = phase("LM slice", lm_slice_phase, dev)
@@ -5044,6 +5155,8 @@ def main() -> int:
         "graph_ms": tm["graph_ms"], "library_graph_ms": tm["library_graph_ms"],
         "us_per_frame": sl["us_per_frame"], "frame_p99_us": sl["p99_us"],
         "sr1_launches": sl["launches"], "paper_launches": pp["launches"],
+        # [phase B1 at the serving batch]: the batch-tiled body
+        "serving_batch": sb,
         # measured only: the engine's cycle model is printed, not kept here
         "paper": {
             "gru": {k: v for k, v in pp["gru"].items()

@@ -3,8 +3,11 @@ kernel's plain version, which must match the JAX package's Pallas kernel
 (interpret mode, as tests/test_kernels.py runs it) over that file's
 sweep, at its tolerances: 1e-5 in fp32 (summation order only), 5e-2 in
 bf16 (inputs rounded to 8 bits of mantissa). The CUDA kernel itself runs
-only on the card: the last test here, and chip_smoke.py; its launch
-configuration is computed on the host and checked here."""
+only on the card: the tests that take ``cuda_device`` here, and
+chip_smoke.py; its launch configurations are computed on the host and
+checked here."""
+import itertools
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -14,8 +17,11 @@ from repro.core import CSBSpec, csb_masks, csb_project, padded_csb_from_dense
 from repro.kernels.ops import csb_matvec as j_matvec
 from repro.kernels.ref import densify as j_densify
 from repro_torch.convert import cell_params_from_numpy
-from repro_torch.kernels import csb_matvec, csb_mvm_ref, densify, pad_to_grid
-from repro_torch.kernels.csb_mvm import csb_mvm_cuda, launch_config
+from repro_torch.core.csb_format import PaddedCSB
+from repro_torch.kernels import (csb_matvec, csb_mvm, csb_mvm_ref, densify,
+                                 pad_to_grid)
+from repro_torch.kernels.csb_mvm import (csb_mvm_cuda, launch_config,
+                                         tiled_config, tiled_smem)
 
 
 def make_pair(seed, shape, bm, bn, rate, dtype=jnp.float32):
@@ -186,6 +192,55 @@ def test_launch_config_one_pass_at_4096_columns():
     assert launch_config(128, 32, 16, 16, 8, 8)[2] == 128
 
 
+# (Br, Bc, bm = bn, Pm, Pn) of the grids the port builds (SR1, SR2, the
+# FFN's 32-row blocks, tests' 8-64-row blocks), each at a true row count
+# below, at and above the tiled body's threshold, up to 4,096 rows
+TH = csb_mvm.TILED_MIN_ROWS
+TILED_GRIDS = [g for g in itertools.product(
+    (1, 16, 32), (1, 5, 32, 128), (8, 32, 64), (0, 8, 32, 64),
+    (0, 8, 32, 64)) if g[3] <= g[2] and g[4] <= g[2]]
+
+
+@pytest.mark.parametrize("rows", [1, TH - 1, TH, 1000, 4096])
+@pytest.mark.parametrize("br,bc,b,pm,pn", TILED_GRIDS[::12])
+def test_tiled_config(br, bc, b, pm, pn, rows):
+    """The batch-tiled body below its threshold is not taken; at and above
+    it, a CTA of whole warps (one a block-row, at most 8) covers every
+    block-row, its grid fits the card's y limit, its shared memory is the
+    source's sum within 227 KB, and the inputs are staged in as few passes
+    as fit."""
+    batch = -(-rows // 8) * 8
+    cfg = tiled_config(br, bc, b, b, pm, pn, batch, rows)
+    if rows < TH:
+        assert cfg is None
+        return
+    threads, chunk, smem, (gx, gy) = cfg
+    warps = threads // 32
+    assert threads % 32 == 0 and 32 <= threads <= 256
+    assert gx * warps >= br > (gx - 1) * warps
+    assert gy * 32 >= batch and gy <= 65535
+    assert 1 <= chunk <= bc
+    assert smem == tiled_smem(b, b, pm, pn, warps, chunk) <= 232448
+    passes = -(-bc // chunk)
+    if passes > 1:
+        assert tiled_smem(b, b, pm, pn, warps, -(-bc // (passes - 1))) \
+            > 232448
+
+
+@pytest.mark.parametrize("br,bc,tiles,want", [
+    (32, 16, 32, (256, 16, (4, 32))),     # SR1's U at 1,024 rows
+    (32, 32, 32, (256, 32, (4, 32))),     # SR2's U
+    (16, 32, 32, (128, 32, (4, 32))),     # SR1's W_proj
+    (32, 5, 4, (64, 5, (16, 4))),         # 128 rows: 2 warps a CTA
+])
+def test_tiled_config_at_the_serving_batch(br, bc, tiles, want):
+    """At 1,024 rows of SR1's and SR2's 32 x 32 blocks (Pm = Pn = 32) a
+    CTA takes 8 block-rows while the grid still has 128 CTAs, else 4 (at
+    128 rows, 2), and the inputs are staged in one pass."""
+    cfg = tiled_config(br, bc, 32, 32, 32, 32, 32 * tiles, 32 * tiles)
+    assert cfg[:2] + cfg[3:] == want
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -209,3 +264,138 @@ def test_kernel_matches_plain_on_card(cuda_device, dtype, tol):
     ref = csb_mvm_ref(pc.vals, pc.row_idx, pc.col_idx, pc.m, pc.n, xp,
                       grid=pc.grid, block=pc.block)[:13, :128]
     torch.testing.assert_close(y, ref, rtol=tol, atol=tol)
+
+
+# Kernel B1's two bodies on the card: the batch-tiled body (at and above
+# ``csb_mvm.TILED_MIN_ROWS`` true rows) gives the row body's numbers
+# exactly, at the speech recognisers' matrix shapes (SR1: 1024 x 153,
+# 1024 x 512, 512 x 1024; SR2: 1024 x 39, 1024 x 1024) and two that
+# exercise its other paths (inputs staged in several passes; 64 x 64
+# blocks, whose dense ones have more live columns than the registers
+# hold). The row body's reference is
+# the same input run in slices of fewer rows than the threshold; each
+# output row depends on its own input row only. The matrices are built
+# like the benchmark's pruned ones: 32 x 32 blocks padded to Pm = Pn = 32,
+# a mean live m and n of 4 to 7, a few dense blocks on the diagonal, and
+# empty blocks (m or n = 0).
+# name: ((out, in), block)
+B1_SHAPES = {
+    "sr1_W": ((1024, 153), 32), "sr1_U": ((1024, 512), 32),
+    "sr1_proj": ((512, 1024), 32), "sr2_W": ((1024, 39), 32),
+    "sr2_U": ((1024, 1024), 32),
+    "passes": ((256, 4096), 32),    # the tile's inputs in several passes
+    "rows64": ((256, 512), 64),     # 64-wide blocks, dense ones read in place
+}
+DTYPES = [(torch.float32, torch.float32), (torch.float32, torch.bfloat16),
+          (torch.bfloat16, torch.float32), (torch.bfloat16, torch.bfloat16)]
+_MATS: dict = {}
+
+
+def pruned_like(shape, b, seed) -> PaddedCSB:
+    """A PaddedCSB of ``shape`` in b x b blocks: per block a live m and n
+    drawn around 5.5, a dense block on each block-row's diagonal every
+    fourth block-row, one block in nine with m = 0 or n = 0 (or both), and
+    the padded kernel as wide as the block."""
+    rng = np.random.default_rng(seed)
+    out, inp = shape
+    br, bc = -(-out // b), -(-inp // b)
+    nb = br * bc
+    vals = np.zeros((nb, b, b), np.float32)
+    ridx = np.zeros((nb, b), np.int32)
+    cidx = np.zeros((nb, b), np.int32)
+    m = np.clip(rng.poisson(5.5, nb), 1, b).astype(np.int32)
+    n = np.clip(rng.poisson(5.5, nb), 1, b).astype(np.int32)
+    for i in range(br):
+        for j in range(bc):
+            blk = i * bc + j
+            cols = min(b, inp - j * b)      # the block's real columns
+            rows = min(b, out - i * b)
+            if i % 4 == 0 and j == i * bc // br:
+                m[blk], n[blk] = rows, cols
+            kind = rng.integers(9)
+            if kind == 0:
+                m[blk] = 0
+            elif kind == 1:
+                n[blk] = 0
+            elif kind == 2:
+                m[blk] = n[blk] = 0
+            m[blk], n[blk] = min(m[blk], rows), min(n[blk], cols)
+            mb, nbk = int(m[blk]), int(n[blk])
+            ridx[blk, :mb] = np.sort(rng.choice(rows, mb, replace=False))
+            cidx[blk, :nbk] = np.sort(rng.choice(cols, nbk, replace=False))
+            vals[blk, :mb, :nbk] = rng.normal(size=(mb, nbk))
+    t = torch.from_numpy
+    return PaddedCSB(vals=t(vals), row_idx=t(ridx), col_idx=t(cidx),
+                     m=t(m), n=t(n), shape=shape, grid=(br, bc),
+                     block=(b, b))
+
+
+def _on_card(name, vdtype, dev) -> PaddedCSB:
+    key = (name, vdtype)
+    if key not in _MATS:
+        shape, b = B1_SHAPES[name]
+        p = pruned_like(shape, b, seed=sum(map(ord, name))).to(dev)
+        p.vals = p.vals.to(vdtype)
+        _MATS[key] = p
+    return _MATS[key]
+
+
+def _launch(p, xp, rows):
+    return csb_mvm.csb_mvm_cuda(p.vals, p.row_idx, p.col_idx, p.m, p.n, xp,
+                                grid=p.grid, block=p.block, batch_tile=8,
+                                group=1, rows=rows)
+
+
+def _row_body(p, x):
+    """The row body's outputs for x's rows, in slices it takes."""
+    cols = p.grid[1] * p.block[1]
+    step = csb_mvm.TILED_MIN_ROWS - 1
+    parts = []
+    for lo in range(0, x.shape[0], step):
+        xs = x[lo: lo + step]
+        parts.append(_launch(p, pad_to_grid(xs, 8, cols).contiguous(),
+                             xs.shape[0])[: xs.shape[0]])
+    return torch.cat(parts)
+
+
+@pytest.mark.parametrize("vdtype,xdtype", DTYPES,
+                         ids=["f32-f32", "f32-bf16", "bf16-f32", "bf16-bf16"])
+@pytest.mark.parametrize("rows", ["threshold", 1000, 1024])
+@pytest.mark.parametrize("name", list(B1_SHAPES))
+def test_tiled_body_equals_row_body(cuda_device, name, rows, vdtype,
+                                    xdtype):
+    """Equal numbers, and the pad rows of the batch (8 past the true rows,
+    plus the tile grid's own) written as zeros."""
+    rows = csb_mvm.TILED_MIN_ROWS if rows == "threshold" else rows
+    p = _on_card(name, vdtype, cuda_device)
+    cols = p.grid[1] * p.block[1]
+    gen = torch.Generator().manual_seed(rows)
+    x = torch.randn(rows, p.shape[1], generator=gen).to(cuda_device, xdtype)
+    xp = pad_to_grid(x, 8, cols)
+    xp = torch.cat([xp, torch.zeros_like(xp[:8])]).contiguous()
+    tiled_before = csb_mvm.TILED_LAUNCHES
+    y = _launch(p, xp, rows)
+    assert csb_mvm.TILED_LAUNCHES == tiled_before + 1
+    ref = _row_body(p, x)
+    torch.cuda.synchronize()
+    assert csb_mvm.TILED_LAUNCHES == tiled_before + 1
+    np.testing.assert_array_equal(y[:rows].cpu().numpy(), ref.cpu().numpy())
+    assert not y[rows:].any()
+    if (vdtype, xdtype) == (torch.float32, torch.float32):
+        plain = csb_mvm_ref(p.vals, p.row_idx, p.col_idx, p.m, p.n, xp,
+                            grid=p.grid, block=p.block)
+        torch.testing.assert_close(y, plain, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("rows,tiled", [(1, 0), (1024, 1)])
+def test_tiled_launches_count_the_tiled_body(cuda_device, rows, tiled):
+    """``TILED_LAUNCHES`` counts a launch at 1,024 rows and none at one;
+    ``LAUNCHES`` counts both."""
+    p = _on_card("sr1_U", torch.float32, cuda_device)
+    x = torch.randn(rows, p.shape[1], device=cuda_device)
+    xp = pad_to_grid(x, 8, p.grid[1] * p.block[1]).contiguous()
+    before = (csb_mvm.LAUNCHES, csb_mvm.TILED_LAUNCHES)
+    _launch(p, xp, rows)
+    torch.cuda.synchronize()
+    assert (csb_mvm.LAUNCHES - before[0],
+            csb_mvm.TILED_LAUNCHES - before[1]) == (1, tiled)
